@@ -1,16 +1,18 @@
-"""Drive drtk_tpu_torch's forward render path on one NVIDIA GPU.
+"""Drive drtk_tpu_torch's render path and fitting step on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout, holds each one
-against its plain PyTorch version on the card, then renders the repository's
+against its plain PyTorch version on the card, then, on the repository's
 flagship scene (``textured``: 1024x1024 pixels, a 161x161-vertex grid of
-51,200 triangles, per-vertex uvs, a 3x512x512 texture) through the public
-entry point and times it with CUDA events. Every earlier line of output is
-a JSON object (or the raw nvidia-smi line); the last line is
-``{"ok": true, "device": {...}}``. Any failed check raises, so the script
-then exits non-zero without that line. It exits non-zero at once when CUDA
-is absent or the package is not beside it.
+51,200 triangles, per-vertex uvs, a 3x512x512 texture), renders it through
+the public entry point and runs the fitting step (forward and backward, with
+gradients to the vertices, the uvs and the texture), timing both with CUDA
+events. Every earlier line of output is a JSON object (or the raw
+nvidia-smi line); the last line is ``{"ok": true, "device": {...}}``. Any
+failed check raises, so the script then exits non-zero without that line.
+It exits non-zero at once when CUDA is absent or the package is not beside
+it.
 """
 
 from __future__ import annotations
@@ -131,9 +133,10 @@ def main() -> int:
         import drtk_tpu_torch as tt
         from drtk_tpu_torch import _build
         from drtk_tpu_torch.ops import rasterize as rast
-        from drtk_tpu_torch.ops import rasterize_cuda, segment_rows
+        from drtk_tpu_torch.ops import grid_sample as gs
+        from drtk_tpu_torch.ops import rasterize_cuda, segment_rows, window_accum
         from drtk_tpu_torch.ops.render import _face_table
-        from drtk_tpu_torch.pipeline import STAGES, render_textured, stage_ms
+        from drtk_tpu_torch.pipeline import BACKWARD_STAGES, FIT_STAGES, STAGES, fit_step, render_textured, stage_ms
         from drtk_tpu_torch.scenes import entry_scene, make_scene
     except ImportError as err:
         print(f"chip_smoke: drtk_tpu_torch is not importable here ({err})", file=sys.stderr)
@@ -236,7 +239,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = tt.kernel_launch_counts()
     n_steps = WARMUP + STEPS
-    if launches != {"B1 rasterize": n_steps, "B2 gather_rows": 2 * n_steps}:
+    if launches != {"B1 rasterize": n_steps, "B2 gather_rows": 2 * n_steps, "B3 scatter_rows": 0,
+                    "B4 window_accum": 0}:
         raise AssertionError(f"main path launches {launches} over {n_steps} steps, expected 1 B1 and 2 B2 per step")
     peak = torch.cuda.max_memory_allocated()
     per_stage = [stage_ms(marks) for marks in step_marks[WARMUP:]]
@@ -280,27 +284,181 @@ def main() -> int:
         "max_abs_bary_err_vs_render_ref": bary_err, "profile": profile,
     })
 
-    # 6. The kernels, with the numbers of this run
-    def b2_sum(key):
-        return b2[9][key] + b2[6][key]
+    # 6. B3 vs plain: rows from a seeded generator, the textured scene's index image
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fg = index_img >= 0
+    n_fg = int(fg.sum())
+    b3 = {}
+    for k_dim in (9, 6):
+        rows = torch.randn((1, H, W, k_dim), generator=gen, device=dev)
+        got = segment_rows.scatter_rows_to_faces(rows, index_img, n_faces)
+        want = segment_rows._scatter_rows_plain(rows, index_img, n_faces)
+        magnitude = segment_rows._scatter_rows_plain(rows.abs(), index_img, n_faces)
+        lib_idx, lib_rows = index_img[fg].long(), rows[fg]
+
+        def library(lib_idx=lib_idx, lib_rows=lib_rows, k_dim=k_dim):
+            return torch.zeros((n_faces, k_dim), device=dev).index_add_(0, lib_idx, lib_rows)
+
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        # atomics reorder the sums: rtol 1e-5, atol 1e-6 of the summed magnitudes
+        if not bool((err <= 1e-5 * want.abs() + 1e-6 * magnitude).all()):
+            raise AssertionError(f"B3 K={k_dim}: kernel differs from the plain scatter by {err.max().item()}")
+        if not bool(((library() - want[0]).abs() <= 1e-5 * want[0].abs() + 1e-6 * magnitude[0]).all()):
+            raise AssertionError(f"B3 K={k_dim}: the library yardstick computes another function")
+        nbytes = n_fg * k_dim * 4 + index_img.numel() * 4 + n_faces * k_dim * 4
+        b3[k_dim] = {
+            "ms": cuda_ms(lambda: segment_rows._scatter_rows_cuda(rows, index_img, n_faces), 50),
+            "plain_ms": cuda_ms(lambda: segment_rows._scatter_rows_plain(rows, index_img, n_faces), 20),
+            "library_ms": cuda_ms(library, 50), "library": "index_add_ of the foreground rows (the plain "
+            "version's core, without its masking)", "foreground_pixels": n_fg,
+            "bytes": nbytes, "bound_ms": nbytes / bw * 1e3, "max_abs_err": err.max().item(),
+        }
+        emit({"phase": "B3 vs plain", "K": k_dim, **b3[k_dim]})
+
+    # 7. B4 vs plain on the taps of the fitting step's own grid_sample: the
+    # quad-row index of every pixel's bilinear border sample of the texture
+    _, bary0 = tt.render(v, vi, index_img)
+    uv = tt.interpolate(vt, vi, index_img, bary0).movedim(1, -1) * 2.0 - 1.0
+    t_h, t_w = tex.shape[2:]
+    bx = torch.floor(gs._compute_source_index(uv[..., 0], t_w, "border", False)).int().clamp(0, t_w - 1)
+    by = torch.floor(gs._compute_source_index(uv[..., 1], t_h, "border", False)).int().clamp(0, t_h - 1)
+    k4 = 4 * tex.shape[1]
+    cot = torch.randn((1, H * W, k4), generator=gen, device=dev) * fg.reshape(1, -1, 1)  # zero at background
+    iy = torch.where(fg, by, -1).reshape(1, -1)
+    ix = bx.reshape(1, -1)
+    rows_kp = cot.transpose(1, 2)  # the [N, K, P] view the row scatter passes
+    got = window_accum.window_accumulate(rows_kp, iy, ix, t_h, t_w)
+    want = window_accum._window_accumulate_plain(rows_kp, iy, ix, t_h, t_w)
+    magnitude = window_accum._window_accumulate_plain(rows_kp.abs(), iy, ix, t_h, t_w)
+    lib_flat = (by * t_w + bx)[fg].long()
+    lib_rows = cot[0][fg.reshape(-1)].t().contiguous()
+
+    def library_b4():
+        return torch.zeros((k4, t_h * t_w), device=dev).index_add_(1, lib_flat, lib_rows)
+
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    if not bool((err <= 1e-5 * want.abs() + 1e-6 * magnitude).all()):
+        raise AssertionError(f"B4: kernel differs from the plain scatter by {err.max().item()}")
+    lib_err = (library_b4().reshape(k4, t_h, t_w) - want[0]).abs()
+    if not bool((lib_err <= 1e-5 * want[0].abs() + 1e-6 * magnitude[0]).all()):
+        raise AssertionError("B4: the library yardstick computes another function")
+    nbytes = n_fg * k4 * 4 + iy.numel() * 4 + ix.numel() * 4 + k4 * t_h * t_w * 4
+    b4 = {
+        "K": k4, "taps": iy.numel(), "live_taps": n_fg, "table": [t_h, t_w],
+        "ms": cuda_ms(lambda: window_accum._window_accumulate_cuda(rows_kp, iy, ix, t_h, t_w), 50),
+        "plain_ms": cuda_ms(lambda: window_accum._window_accumulate_plain(rows_kp, iy, ix, t_h, t_w), 20),
+        "library_ms": cuda_ms(library_b4, 50), "library": "index_add_ of the live taps' rows (the plain "
+        "version's core, without its masking)",
+        "bytes": nbytes, "bound_ms": nbytes / bw * 1e3, "max_abs_err": err.max().item(),
+    }
+    emit({"phase": "B4 vs plain", **b4})
+
+    # 8. The main path of this slice: the fitting step at full size, with
+    # gradients to v, vt and tex, then bench_textured's v-only gradient.
+    expected = {
+        ("v", "vt", "tex"): {"B1 rasterize": 1, "B2 gather_rows": 5, "B3 scatter_rows": 3, "B4 window_accum": 1},
+        ("v",): {"B1 rasterize": 1, "B2 gather_rows": 5, "B3 scatter_rows": 2, "B4 window_accum": 0},
+    }
+    fit = {}
+    for wrt, per_step in expected.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tt.reset_kernel_launch_counts()
+        step_marks, host_s = [], []
+        for _ in range(WARMUP + STEPS):
+            marks = []
+            t0 = time.perf_counter()
+            loss, grads = fit_step(v, vi, vt, tex, H, W, wrt=wrt, stage_times=marks)
+            host_s.append(time.perf_counter() - t0)
+            step_marks.append(marks)
+        torch.cuda.synchronize()
+        fit_launches = tt.kernel_launch_counts()
+        n_steps = WARMUP + STEPS
+        if fit_launches != {k: c * n_steps for k, c in per_step.items()}:
+            raise AssertionError(f"fit step {wrt}: launches {fit_launches} over {n_steps} steps, expected "
+                                 f"{per_step} per step")
+        peak = torch.cuda.max_memory_allocated()
+        per_stage = [stage_ms(marks) for marks in step_marks[WARMUP:]]
+        step_ms = [sum(p.values()) for p in per_stage]
+        fwd_ms = [sum(p[k] for k in STAGES + ("loss",)) for p in per_stage]
+        med_ms = statistics.median(step_ms)
+        for leaf, g in grads.items():
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"fit step {wrt}: grad_{leaf} is not finite")
+        profile = device_profile(lambda wrt=wrt: fit_step(v, vi, vt, tex, H, W, wrt=wrt), PROFILED_STEPS)
+        fit[wrt] = {
+            "phase": "fit step", "config": "textured", "wrt": list(wrt), "H": H, "W": W, "faces": n_faces,
+            "steps_timed": STEPS, "step_ms_median": med_ms, "step_ms_min": min(step_ms),
+            "step_ms_max": max(step_ms), "mpix_per_s": H * W / (med_ms * 1e-3) / 1e6,
+            "forward_ms_median": statistics.median(fwd_ms),
+            "backward_ms_median": statistics.median(sum(p[k] for k in BACKWARD_STAGES) for p in per_stage),
+            "host_ms_per_call_median": statistics.median(host_s[WARMUP:]) * 1e3,
+            "stage_ms_median": {k: statistics.median(p[k] for p in per_stage) for k in FIT_STAGES},
+            "peak_mem_bytes": peak, "launches": fit_launches, "launches_per_step": per_step,
+            "loss": loss.item(), "profile": profile,
+        }
+    main_launches = fit[("v", "vt", "tex")]["launches"]
+
+    # ...held against the plain pipeline on the kernel's index image.
+    idx_k = tt.rasterize(v, vi, H, W)
+    loss_k, grads_k = fit_step(v, vi, vt, tex, H, W, index_img=idx_k)
+    loss_p, grads_p = fit_step(v, vi, vt, tex, H, W, index_img=idx_k, impl="plain")
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    if loss_err > 1e-5:
+        raise AssertionError(f"fit step: loss differs from the plain pipeline's by {loss_err} relative")
+    grad_err = {}
+    for leaf in ("v", "vt", "tex"):
+        scale = grads_p[leaf].abs().max().item()
+        grad_err[leaf] = (grads_k[leaf] - grads_p[leaf]).abs().max().item() / scale
+        if not grad_err[leaf] <= 1e-4:
+            raise AssertionError(f"fit step: grad_{leaf} differs from the plain pipeline's by {grad_err[leaf]} "
+                                 "of its largest magnitude")
+    fit[("v", "vt", "tex")].update({"loss_rel_err_vs_plain": loss_err, "grad_rel_err_vs_plain": grad_err})
+    for rec in fit.values():
+        emit(rec)
+
+    # 9. The kernels, with the numbers of this run; times per fitting step
+    # (B2: K=9 and K=6 in the forward, again in the backward, and K=16 in
+    # edge_grad's backward; B3: K=9 in render's and edge_grad's backward,
+    # K=6 in interpolate's).
+    def b2_step(key):
+        return 2 * b2[9][key] + 2 * b2[6][key] + b2[16][key]
+
+    def b3_step(key):
+        return 2 * b3[9][key] + b3[6][key]
 
     kernels = [
         {"name": "B1 rasterize_pallas._tile_kernel", "route": "cuda",
          "source": "drtk_tpu_torch/csrc/rasterize.cu", "replaces": "drtk_tpu/ops/rasterize_pallas.py:257",
-         "launches": launches["B1 rasterize"], "max_abs_err": b1["textured"]["max_abs_depth_err"],
+         "launches": main_launches["B1 rasterize"], "launches_per_step": 1,
+         "max_abs_err": b1["textured"]["max_abs_depth_err"],
          "ms": b1["textured"]["ms"], "plain_ms": b1["textured"]["plain_ms"],
          "bound_ms": b1["textured"]["bound_ms"], "bound_by": b1["textured"]["bound_by"], "library_ms": None},
         {"name": "B2 segment_rows._gather_kernel", "route": "cuda",
          "source": "drtk_tpu_torch/csrc/gather_rows.cu", "replaces": "drtk_tpu/ops/segment_rows.py:359",
-         "launches": launches["B2 gather_rows"], "max_abs_err": 0.0,
-         "ms": b2_sum("ms"), "plain_ms": b2_sum("plain_ms"), "bound_ms": b2_sum("bound_ms"),
-         "bound_by": "bytes", "library_ms": b2_sum("library_ms")},
+         "launches": main_launches["B2 gather_rows"], "launches_per_step": 5, "max_abs_err": 0.0,
+         "ms": b2_step("ms"), "plain_ms": b2_step("plain_ms"), "bound_ms": b2_step("bound_ms"),
+         "bound_by": "bytes", "library_ms": b2_step("library_ms")},
+        {"name": "B3 segment_rows._accumulate_kernel", "route": "cuda",
+         "source": "drtk_tpu_torch/csrc/scatter_rows.cu", "replaces": "drtk_tpu/ops/segment_rows.py:129",
+         "launches": main_launches["B3 scatter_rows"], "launches_per_step": 3,
+         "max_abs_err": max(b3[9]["max_abs_err"], b3[6]["max_abs_err"]),
+         "ms": b3_step("ms"), "plain_ms": b3_step("plain_ms"), "bound_ms": b3_step("bound_ms"),
+         "bound_by": "bytes", "library_ms": b3_step("library_ms")},
+        {"name": "B4 window_accum._window_kernel", "route": "cuda",
+         "source": "drtk_tpu_torch/csrc/window_accum.cu", "replaces": "drtk_tpu/ops/window_accum.py:92",
+         "launches": main_launches["B4 window_accum"], "launches_per_step": 1, "max_abs_err": b4["max_abs_err"],
+         "ms": b4["ms"], "plain_ms": b4["plain_ms"], "bound_ms": b4["bound_ms"], "bound_by": "bytes",
+         "library_ms": b4["library_ms"]},
     ]
     emit({"kernels": kernels})
     if "jax" in sys.modules or "drtk_tpu" in sys.modules:
         raise AssertionError("the port imported JAX or the JAX package")
     print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
     return 0
 
 

@@ -25,7 +25,7 @@ __all__ = ["BUILD_DIR", "SOURCES", "build_all", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "drtk_tpu_torch"
-SOURCES = ("gather_rows", "rasterize")
+SOURCES = ("gather_rows", "rasterize", "scatter_rows", "window_accum")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -15,7 +15,7 @@ import torch
 __all__ = ["resolve_device", "scene_from_numpy", "to_numpy"]
 
 # Expected rank and, for the index buffer, dtype of each scene array.
-_RANKS = {"v": (3,), "vi": (2, 3), "vt": (3,), "tex": (4,)}
+_RANKS = {"v": (3,), "vi": (2, 3), "vt": (3,), "tex": (4,), "weight": (4,)}
 
 
 def resolve_device(device) -> torch.device:
@@ -35,7 +35,9 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> dict[st
 
     Args:
         arrays: any of ``v`` [N, V, 3] float, ``vi`` [F, 3] or [N, F, 3]
-            int32, ``vt`` [N, V, 2] float, ``tex`` [N, C, Ht, Wt] float.
+            int32, ``vt`` [N, V, 2] float, ``tex`` [N, C, Ht, Wt] float,
+            ``weight`` [N, C, H, W] float (the weight image of a fitting
+            loss, see :func:`drtk_tpu_torch.pipeline.textured_loss`).
             Float arrays keep their dtype; ``vi`` must be int32, as the
             JAX package requires.
         device: target device; "cuda" raises when CUDA is absent.

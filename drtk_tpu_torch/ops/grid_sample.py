@@ -6,7 +6,15 @@ fetches its four taps as one row of a "quad table" (the texture beside its
 x-, y- and xy-shifted copies), nearest rounds half to even, bicubic uses
 cubic convolution with A = -0.75. No library grid sampler is called; the
 sums are elementwise products and adds, so no matrix unit or TF32 enters.
-Autograd differentiates it, as JAX differentiates the JAX version.
+
+Every texel fetch goes through :func:`~drtk_tpu_torch.ops.row_gather.row_gather`,
+so the texture gradient is its transpose, the row scatter (kernel B4 on the
+card, 12-float quad rows for a 3-channel bilinear texture), built only when
+the texture is differentiated. Autograd carries the rest: the grid gradient
+through the interpolation weights, and the quad table's shifted copies back
+onto the texture. At an exact clamp bound (a folded coordinate equal to 0
+or size - 1) ``torch.clamp`` passes the whole gradient where JAX's clip
+splits it 0.5/0.5; the parity tests keep their grids off those bounds.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from drtk_tpu_torch.ops.math import autocast_f32
+from drtk_tpu_torch.ops.row_gather import row_gather
 
 __all__ = ["grid_sample"]
 
@@ -52,13 +61,7 @@ def _compute_source_index(
     return x
 
 
-def _row_gather(table: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
-    """table [N, R, K], flat [N, P] (in range) -> [N, P, K]."""
-    n = table.shape[0]
-    return table[torch.arange(n, device=table.device)[:, None], flat.long()]
-
-
-def _gather_2d(img: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor, zero_fill: bool) -> torch.Tensor:
+def _gather_2d(img: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor, zero_fill: bool, impl: str) -> torch.Tensor:
     """img[n, :, iy, ix] -> [N, C, *S]. With ``zero_fill``, out-of-bounds
     taps give 0; otherwise the indices are assumed in range."""
     n, c, h, w = img.shape
@@ -66,7 +69,7 @@ def _gather_2d(img: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor, zero_fill:
     ixc = torch.clamp(ix, 0, w - 1)
     iyc = torch.clamp(iy, 0, h - 1)
     rows_img = img.movedim(1, -1).reshape(n, h * w, c)
-    out = _row_gather(rows_img, (iyc * w + ixc).reshape(n, -1))  # [N, S, C]
+    out = row_gather(rows_img, (iyc * w + ixc).reshape(n, -1), (h, w), impl)  # [N, S, C]
     out = out.movedim(-1, 1).reshape((n, c) + tuple(ix.shape[1:]))
     if zero_fill:
         out = torch.where(inb[:, None], out, torch.zeros((), dtype=out.dtype, device=out.device))
@@ -84,7 +87,7 @@ def _cubic_weights(t: torch.Tensor, a: float = -0.75):
     return w0, w1, w2, w3
 
 
-def _grid_sample_impl(input, grid, mode, padding_mode, align_corners):
+def _grid_sample_impl(input, grid, mode, padding_mode, align_corners, impl):
     n, c, h, w = input.shape
     gx = grid[..., 0]
     gy = grid[..., 1]
@@ -95,7 +98,7 @@ def _grid_sample_impl(input, grid, mode, padding_mode, align_corners):
         y = _compute_source_index(gy, h, padding_mode, align_corners)
         ix = torch.round(x).to(torch.int32)  # round half to even, as nearbyint
         iy = torch.round(y).to(torch.int32)
-        return _gather_2d(input, ix, iy, zeros)
+        return _gather_2d(input, ix, iy, zeros, impl)
 
     if mode == "bilinear":
         x = _compute_source_index(gx, w, padding_mode, align_corners)
@@ -125,7 +128,7 @@ def _grid_sample_impl(input, grid, mode, padding_mode, align_corners):
         txy = torch.cat([ty1[:, :, 1:], torch.zeros_like(t[:, :, :1])], 2)
         quad = torch.cat([t, tx1, ty1, txy], -1).reshape(n, hq * wq, 4 * c)
 
-        rows = _row_gather(quad, (by * wq + bx).reshape(n, -1))
+        rows = row_gather(quad, (by * wq + bx).reshape(n, -1), (hq, wq), impl)
         rows = rows.reshape(tuple(ix0.shape) + (4, c))
 
         wts = [(1 - tx) * (1 - ty), tx * (1 - ty), (1 - tx) * ty, tx * ty]
@@ -171,9 +174,9 @@ def _grid_sample_impl(input, grid, mode, padding_mode, align_corners):
         for i in range(4):
             raw_ix = ix0 + (i - 1)
             if zeros:
-                tap = _gather_2d(input, raw_ix, raw_iy, True)
+                tap = _gather_2d(input, raw_ix, raw_iy, True, impl)
             else:
-                tap = _gather_2d(input, bound(raw_ix, w), bound(raw_iy, h), False)
+                tap = _gather_2d(input, bound(raw_ix, w), bound(raw_iy, h), False, impl)
             row = row + tap * wx[i][:, None]
         out = out + row * wy[j][:, None]
     return out
@@ -185,6 +188,7 @@ def grid_sample(
     mode: str = "bilinear",
     padding_mode: str = "zeros",
     align_corners: bool = False,
+    impl: str = "auto",
 ) -> torch.Tensor:
     """Sample ``input`` at normalized ``grid`` locations, with the semantics
     of ``torch.nn.functional.grid_sample`` (2-D).
@@ -196,6 +200,8 @@ def grid_sample(
         mode: "bilinear" | "nearest" | "bicubic".
         padding_mode: "zeros" | "border" | "reflection".
         align_corners: corner-alignment convention.
+        impl: "auto" scatters the texture gradient with kernel B4 on CUDA
+            tensors; "plain" uses the plain scatter on any device.
 
     Returns:
         [N, C, Hg, Wg] samples. f16/bf16 inputs compute in float32.
@@ -210,4 +216,4 @@ def grid_sample(
         raise ValueError(f"grid_sample: unknown mode {mode!r}")
     if padding_mode not in ("zeros", "border", "reflection"):
         raise ValueError(f"grid_sample: unknown padding_mode {padding_mode!r}")
-    return _grid_sample_impl(input, grid, mode, padding_mode, bool(align_corners))
+    return _grid_sample_impl(input, grid, mode, padding_mode, bool(align_corners), impl)

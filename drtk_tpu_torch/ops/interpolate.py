@@ -6,8 +6,12 @@ one 3*C-float row through :func:`gather_rows_by_index` (kernel B2 on the
 card) and are weighted by the barycentric image. Background pixels get the
 deterministic -1..1 x/y sweep pattern rather than zeros.
 
-Only the forward pass is ported: the VJPs belong to the next slice, and
-until then :func:`interpolate` raises when differentiated.
+The backward is the JAX package's VJP (``_interpolate_core_bwd``; its
+``_geom`` twin differs only in the TPU reduction it selects): the
+barycentric gradient is ``sum_c g_c * attr_c`` over the attribute rows,
+gathered again through kernel B2, and the attribute gradient is ``bary x g``
+summed to face rows through kernel B3, then to vertices with ``index_add_``.
+Background pixels contribute nothing: the sweep is a constant.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch
 
 from drtk_tpu_torch.ops.math import autocast_f32
 from drtk_tpu_torch.ops.rasterize import broadcast_vi
-from drtk_tpu_torch.ops.render import BACKWARD_NOT_PORTED, _face_table
+from drtk_tpu_torch.ops.render import _face_table, _pixels_to_verts
 from drtk_tpu_torch.ops.segment_rows import gather_rows_by_index
 
 __all__ = ["interpolate", "interpolate_ref"]
@@ -60,11 +64,29 @@ def _interpolate_fwd_math(vert_attributes, vi, index_img, bary_img, impl="auto")
 class _Interpolate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vert_attributes, vi, index_img, bary_img, impl):
+        ctx.save_for_backward(vert_attributes, vi, index_img, bary_img)
+        ctx.impl = impl
         return _interpolate_fwd_math(vert_attributes, vi, index_img, bary_img, impl)
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError("interpolate " + BACKWARD_NOT_PORTED)
+        """Mirrors ``drtk_tpu/ops/interpolate.py:164-210``."""
+        vert_attributes, vi, index_img, bary_img = ctx.saved_tensors
+        n, h, w = index_img.shape
+        c = vert_attributes.shape[-1]
+        mask = (index_img >= 0).to(grad_out.dtype)
+        g = grad_out.movedim(1, -1) * mask[..., None]  # [N, H, W, C]
+        grad_attr = grad_bary = None
+        if ctx.needs_input_grad[3]:
+            rows = gather_rows_by_index(_face_table(vert_attributes, vi), index_img, ctx.impl)
+            attrs = rows.reshape(n, h, w, 3, c)
+            grad_bary = (g[..., None, :] * attrs).sum(-1).movedim(-1, 1).to(bary_img.dtype)
+        if ctx.needs_input_grad[0]:
+            bary = bary_img.movedim(1, -1)  # [N, H, W, 3]
+            contrib = (bary[..., None] * g[..., None, :]).reshape(n, h, w, 3 * c)
+            grad_attr = _pixels_to_verts(contrib, index_img, vi, vert_attributes.shape[1], ctx.impl)
+            grad_attr = grad_attr.to(vert_attributes.dtype)
+        return grad_attr, None, None, grad_bary, None
 
 
 def interpolate(
@@ -82,9 +104,10 @@ def interpolate(
         vi: [N, F, 3] or [F, 3] int32 face indices.
         index_img: [N, H, W] int32 triangle index image (-1 = background).
         bary_img: [N, 3, H, W] barycentric image.
-        v_pix: optional [N, V, 3] geometry that produced ``index_img``. The
-            JAX package uses it only to pick a backward reduction, so it has
-            no effect on this forward pass.
+        v_pix: optional [N, V, 3] geometry that produced ``index_img``,
+            accepted for parity with the JAX package, which uses it only to
+            pick a TPU reduction route for the backward. It has no effect
+            here, and its gradient is zero (none is returned), as in JAX.
         impl: "auto" gathers the face rows with kernel B2 on CUDA tensors;
             "plain" uses the plain gather on any device.
 

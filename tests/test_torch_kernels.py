@@ -12,7 +12,11 @@ Tolerances: kernel B2 copies table rows, so it must be bit-exact
 plain version's order, so it should match the plain version exactly; the
 assertion still allows the rasterizer's documented tie rule (index flips
 only at pixels whose two depths agree to 1e-4 relative, fewer than 1e-3 of
-the pixels; depth to rtol 1e-4 / atol 1e-6).
+the pixels; depth to rtol 1e-4 / atol 1e-6). Kernels B3 and B4 add with
+atomics in an order that changes from run to run: rtol 1e-5 and an atol of
+1e-6 times the sum of the magnitudes that went into each output (in f64,
+1e-12). The fitting step's gradients through the kernels agree with the
+plain pipeline's to 1e-4 of the largest magnitude, its loss to 1e-5.
 """
 
 import numpy as np
@@ -20,9 +24,9 @@ import pytest
 import torch
 
 import drtk_tpu_torch as tt
-from drtk_tpu_torch.ops import rasterize_cuda, segment_rows
+from drtk_tpu_torch.ops import rasterize_cuda, segment_rows, window_accum
 from drtk_tpu_torch.ops.rasterize import _canvas_cull, _rasterize_plain, broadcast_vi, triangle_setup
-from drtk_tpu_torch.pipeline import render_textured
+from drtk_tpu_torch.pipeline import fit_step, render_textured
 from drtk_tpu_torch.scenes import entry_scene_arrays, make_scene_arrays
 
 
@@ -70,7 +74,9 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     v, vi = torch.from_numpy(s["v"]), torch.from_numpy(s["vi"])
     index_img = tt.rasterize(v, vi, 64, 128)
     tt.render(v, vi, index_img)
-    assert tt.kernel_launch_counts() == {"B1 rasterize": 0, "B2 gather_rows": 0}
+    assert tt.kernel_launch_counts() == {
+        "B1 rasterize": 0, "B2 gather_rows": 0, "B3 scatter_rows": 0, "B4 window_accum": 0,
+    }
 
 
 def test_unknown_impl_raises():
@@ -80,6 +86,20 @@ def test_unknown_impl_raises():
         segment_rows.gather_rows_by_index(table, idx, impl="fast")
     with pytest.raises(ValueError, match="impl"):
         tt.rasterize(torch.zeros((1, 3, 3)), torch.zeros((1, 3), dtype=torch.int32), 4, 4, impl="fast")
+    with pytest.raises(ValueError, match="impl"):
+        segment_rows.scatter_rows_to_faces(torch.zeros((1, 2, 2, 3)), idx, 4, impl="fast")
+    with pytest.raises(ValueError, match="impl"):
+        window_accum.window_accumulate(torch.zeros((1, 3, 4)), idx.reshape(1, 4), idx.reshape(1, 4), 2, 2, impl="fast")
+
+
+def test_accumulation_shape_validation():
+    idx = torch.zeros((1, 2, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="scatter_rows_to_faces"):
+        segment_rows.scatter_rows_to_faces(torch.zeros((1, 2, 3, 3)), idx, 4)
+    with pytest.raises(ValueError, match="window_accumulate"):
+        window_accum.window_accumulate(torch.zeros((1, 3, 4)), idx.reshape(1, 4), idx.reshape(2, 2), 2, 2)
+    with pytest.raises(ValueError, match="table size"):
+        window_accum.window_accumulate(torch.zeros((1, 3, 4)), idx.reshape(1, 4), idx.reshape(1, 4), -1, 2)
 
 
 def _emulate_b1(coef, meta, h, w):
@@ -175,9 +195,76 @@ def test_render_textured_kernels_match_plain(cuda_device):
     tt.reset_kernel_launch_counts()
     img, idx = render_textured(v, vi, vt, tex, 128, 256)
     torch.cuda.synchronize()
-    assert tt.kernel_launch_counts() == {"B1 rasterize": 1, "B2 gather_rows": 2}
+    assert tt.kernel_launch_counts() == {
+        "B1 rasterize": 1, "B2 gather_rows": 2, "B3 scatter_rows": 0, "B4 window_accum": 0,
+    }
     img_p, idx_p = render_textured(v, vi, vt, tex, 128, 256, impl="plain")
     same = (idx == idx_p)[:, None].expand_as(img)
     assert same.float().mean() > 0.999
     assert torch.isfinite(img).all()
     torch.testing.assert_close(img[same], img_p[same], rtol=0, atol=1e-5)
+
+
+def _magnitude_bound(got, want, magnitude, dtype):
+    """|got - want| <= rtol |want| + atol_scale * magnitude."""
+    rtol, scale = (1e-5, 1e-6) if dtype == torch.float32 else (1e-12, 1e-12)
+    assert bool(((got - want).abs() <= rtol * want.abs() + scale * magnitude).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_dim", [6, 9, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_scatter_kernel_matches_plain(cuda_device, k_dim, dtype):
+    rng = np.random.RandomState(k_dim)
+    n, f_cnt, h, w = 2, 300, 70, 130
+    rows = torch.from_numpy(rng.randn(n, h, w, k_dim)).to(dtype)
+    idx = torch.from_numpy(rng.randint(-1, f_cnt, (n, h, w)).astype(np.int32))
+    idx[0, 0, :3] = torch.tensor([-5, f_cnt - 1, f_cnt + 7], dtype=torch.int32)
+    want = segment_rows._scatter_rows_plain(rows, idx, f_cnt)
+    magnitude = segment_rows._scatter_rows_plain(rows.abs(), idx, f_cnt)
+    before = segment_rows.scatter_launches
+    got = segment_rows.scatter_rows_to_faces(rows.to(cuda_device), idx.to(cuda_device), f_cnt)
+    torch.cuda.synchronize()
+    assert segment_rows.scatter_launches == before + 1
+    assert got.dtype == dtype and got.shape == (n, f_cnt, k_dim)
+    _magnitude_bound(got.cpu(), want, magnitude, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_window_kernel_matches_plain(cuda_device, dtype):
+    rng = np.random.RandomState(3)
+    n, k_dim, p, out_h, out_w = 2, 12, 5000, 37, 61
+    rows_pk = torch.from_numpy(rng.randn(n, p, k_dim)).to(dtype)
+    iy = torch.from_numpy(rng.randint(-2, out_h + 2, (n, p)).astype(np.int32))  # inert and outside taps too
+    ix = torch.from_numpy(rng.randint(-2, out_w + 2, (n, p)).astype(np.int32))
+    want = window_accum._window_accumulate_plain(rows_pk.transpose(1, 2), iy, ix, out_h, out_w)
+    magnitude = window_accum._window_accumulate_plain(rows_pk.abs().transpose(1, 2), iy, ix, out_h, out_w)
+    before = window_accum.launches
+    # the [N, P, K] rows as their [N, K, P] view, as the row scatter passes them
+    got = window_accum.window_accumulate(
+        rows_pk.to(cuda_device).transpose(1, 2), iy.to(cuda_device), ix.to(cuda_device), out_h, out_w)
+    torch.cuda.synchronize()
+    assert window_accum.launches == before + 1
+    assert got.dtype == dtype and got.shape == (n, k_dim, out_h, out_w)
+    _magnitude_bound(got.cpu(), want, magnitude, dtype)
+
+
+@pytest.mark.cuda
+def test_fit_step_kernels_match_plain(cuda_device):
+    s = make_scene_arrays(128, 256, 9)
+    v, vi, vt, tex = (torch.from_numpy(s[k]).to(cuda_device) for k in ("v", "vi", "vt", "tex"))
+    tt.reset_kernel_launch_counts()
+    loss, grads = fit_step(v, vi, vt, tex, 128, 256)
+    torch.cuda.synchronize()
+    assert tt.kernel_launch_counts() == {
+        "B1 rasterize": 1, "B2 gather_rows": 5, "B3 scatter_rows": 3, "B4 window_accum": 1,
+    }
+    idx = tt.rasterize(v, vi, 128, 256)
+    loss, grads = fit_step(v, vi, vt, tex, 128, 256, index_img=idx)
+    loss_p, grads_p = fit_step(v, vi, vt, tex, 128, 256, index_img=idx, impl="plain")
+    torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0)
+    for name in ("v", "vt", "tex"):
+        assert bool(torch.isfinite(grads[name]).all())
+        err = (grads[name] - grads_p[name]).abs().max()
+        assert err <= 1e-4 * grads_p[name].abs().max(), name
