@@ -1,18 +1,31 @@
-"""Drive drtk_tpu_torch's render path and fitting step on one NVIDIA GPU.
+"""Drive drtk_tpu_torch's render paths and fitting steps on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from the sources in this checkout, holds each one
-against its plain PyTorch version on the card, then, on the repository's
-flagship scene (``textured``: 1024x1024 pixels, a 161x161-vertex grid of
-51,200 triangles, per-vertex uvs, a 3x512x512 texture), renders it through
-the public entry point and runs the fitting step (forward and backward, with
-gradients to the vertices, the uvs and the texture), timing both with CUDA
-events. Every earlier line of output is a JSON object (or the raw
-nvidia-smi line); the last line is ``{"ok": true, "device": {...}}``. Any
-failed check raises, so the script then exits non-zero without that line.
-It exits non-zero at once when CUDA is absent or the package is not beside
-it.
+Builds the five CUDA kernels from the sources in this checkout, holds each
+one against its plain PyTorch version on the card, then drives the paths a
+user calls, each with the kernel launch counts reset just before it and
+checked just after:
+
+- on the repository's flagship scene (``textured``: 1024x1024 pixels, a
+  161x161-vertex grid of 51,200 triangles, per-vertex uvs, a 3x512x512
+  texture), the forward render and the fitting step (forward and backward,
+  with gradients to the vertices, the uvs and the texture);
+- on the ``inverse8`` scene of ``bench.py`` (8 pinhole cameras of 512x512
+  around a world-space grid of 12,800 triangles, a 3x256x256 texture), the
+  wireframe render of every view through ``transform`` (kernel B5) and the
+  multi-view training step (``transform`` through the textured pipeline
+  with a silhouette, gradients to the world vertices and the texture, an
+  Adam update).
+
+Triangle rasterization (B1) is held against its plain version on the
+entry and textured scenes and on the views of the inverse8 step, wireframe
+rasterization (B5) on the entry, textured and inverse8 scenes, and
+row-tile viewports of B1 and B5 against the full frame. Times come from CUDA events. Every earlier line of
+output is a JSON object (or the raw nvidia-smi line); the last line is
+``{"ok": true, "device": {...}}``. Any failed check raises, so the script
+then exits non-zero without that line. It exits non-zero at once when CUDA
+is absent or the package is not beside it.
 """
 
 from __future__ import annotations
@@ -38,6 +51,12 @@ ENTRY_HW = 256  # the entry() scene: 96 random vertices, 128 large triangles
 WARMUP, STEPS = 3, 25
 PROFILED_STEPS = 5
 FLOPS_PER_TEST = 17  # per pixel centre tested by B1: 3 edges x (2 mul + 2 add), di 3 mul + 2 add
+INV_HW, INV_GN, INV_VIEWS = 512, 81, 8  # the inverse8 configuration (bench.py: bench_inverse8)
+# Per pixel tested by B5: 3 edges x 4, then clip, renormalise and di (3 mul, 3 x 2 clamp, 2 add, 3 div,
+# 3 mul, 2 add); per visible edge its line (2 sub, 2 mul, 1 sub) and four diamond sides of 16 (a2, b2:
+# 2 sub; c2, d: 2 x (2 mul + 1 sub); cx, cy: 2 x (2 mul + 1 sub + 1 div)), each division counted once.
+LINE_FLOPS_PER_TEST, LINE_FLOPS_PER_EDGE = 12 + 19, 5 + 4 * 16
+CAMS = ("campos", "camrot", "focal", "princpt")
 
 
 def emit(record: dict) -> None:
@@ -136,8 +155,12 @@ def main() -> int:
         from drtk_tpu_torch.ops import grid_sample as gs
         from drtk_tpu_torch.ops import rasterize_cuda, segment_rows, window_accum
         from drtk_tpu_torch.ops.render import _face_table
-        from drtk_tpu_torch.pipeline import BACKWARD_STAGES, FIT_STAGES, STAGES, fit_step, render_textured, stage_ms
-        from drtk_tpu_torch.scenes import entry_scene, make_scene
+        from drtk_tpu_torch.interop import scene_from_numpy
+        from drtk_tpu_torch.pipeline import (
+            BACKWARD_STAGES, FIT_STAGES, INVERSE8_STAGES, STAGES, fit_step, inverse8_step, render_multiview,
+            render_textured, stage_ms,
+        )
+        from drtk_tpu_torch.scenes import entry_scene, inverse8_scene_arrays, make_scene, with_edge_flags
     except ImportError as err:
         print(f"chip_smoke: drtk_tpu_torch is not importable here ({err})", file=sys.stderr)
         return 3
@@ -194,11 +217,9 @@ def main() -> int:
         }
         emit({"phase": "B2 vs plain", "K": k_dim, "bit_exact": True, **b2[k_dim]})
 
-    # 4. B1 vs plain on the entry scene and the textured scene
-    entry = entry_scene(h=ENTRY_HW, w=ENTRY_HW, device=dev)
-    b1 = {}
-    for scene, (sv, svi, hh, ww) in {"entry": (entry[0], entry[1], ENTRY_HW, ENTRY_HW),
-                                    "textured": (v, vi, H, W)}.items():
+    # 4. B1 vs plain on the entry scene and the textured scene (and, in
+    # phase 13, on the inverse8 step's views)
+    def b1_vs_plain(scene, sv, svi, hh, ww) -> dict:
         svib = rast.broadcast_vi(svi, sv.shape[0])
         setup = rast.triangle_setup(sv, svib)
         valid = rast._canvas_cull(setup, hh, ww)
@@ -212,17 +233,23 @@ def main() -> int:
         nbytes = coef.numel() * 4 + meta.numel() * 4 + d.numel() * 4 + i.numel() * 4
         bound_bytes_ms = nbytes / bw * 1e3
         bound_ops_ms = tests * FLOPS_PER_TEST / f32_flops * 1e3
+        ms_runs = [cuda_ms(lambda: rasterize_cuda.resolve_packed(coef, meta, hh, ww), 20) for _ in range(3)]
         rec.update({
-            "H": hh, "W": ww, "faces": int(svib.shape[1]),
-            "ms": cuda_ms(lambda: rasterize_cuda.resolve_packed(coef, meta, hh, ww), 20),
+            "H": hh, "W": ww, "batch": int(sv.shape[0]), "faces": int(svib.shape[1]),
+            "bit_exact": bool(torch.equal(d, d_ref) and torch.equal(i, i_ref)),
+            "ms": statistics.median(ms_runs), "ms_runs": ms_runs,
             "plain_ms": cuda_ms(lambda: rast._rasterize_plain(setup, valid, hh, ww), 2, warmup=1),
             "rasterize_call_ms": cuda_ms(lambda: tt.rasterize_with_depth(sv, svi, hh, ww), 20),
             "pixel_centres_tested": tests, "bytes": nbytes,
             "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-            "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+            "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations", "library_ms": None,
         })
-        b1[scene] = rec
         emit({"phase": "B1 vs plain", "scene": scene, **rec})
+        return rec
+
+    entry = entry_scene(h=ENTRY_HW, w=ENTRY_HW, device=dev)
+    b1 = {"entry": b1_vs_plain("entry", entry[0], entry[1], ENTRY_HW, ENTRY_HW),
+          "textured": b1_vs_plain("textured", v, vi, H, W)}
 
     # 5. The main path: render_textured at full size, through the kernels
     torch.cuda.synchronize()
@@ -240,7 +267,7 @@ def main() -> int:
     launches = tt.kernel_launch_counts()
     n_steps = WARMUP + STEPS
     if launches != {"B1 rasterize": n_steps, "B2 gather_rows": 2 * n_steps, "B3 scatter_rows": 0,
-                    "B4 window_accum": 0}:
+                    "B4 window_accum": 0, "B5 rasterize_lines": 0}:
         raise AssertionError(f"main path launches {launches} over {n_steps} steps, expected 1 B1 and 2 B2 per step")
     peak = torch.cuda.max_memory_allocated()
     per_stage = [stage_ms(marks) for marks in step_marks[WARMUP:]]
@@ -358,8 +385,10 @@ def main() -> int:
     # 8. The main path of this slice: the fitting step at full size, with
     # gradients to v, vt and tex, then bench_textured's v-only gradient.
     expected = {
-        ("v", "vt", "tex"): {"B1 rasterize": 1, "B2 gather_rows": 5, "B3 scatter_rows": 3, "B4 window_accum": 1},
-        ("v",): {"B1 rasterize": 1, "B2 gather_rows": 5, "B3 scatter_rows": 2, "B4 window_accum": 0},
+        ("v", "vt", "tex"): {"B1 rasterize": 1, "B2 gather_rows": 5, "B3 scatter_rows": 3, "B4 window_accum": 1,
+                             "B5 rasterize_lines": 0},
+        ("v",): {"B1 rasterize": 1, "B2 gather_rows": 5, "B3 scatter_rows": 2, "B4 window_accum": 0,
+                 "B5 rasterize_lines": 0},
     }
     fit = {}
     for wrt, per_step in expected.items():
@@ -419,7 +448,169 @@ def main() -> int:
     for rec in fit.values():
         emit(rec)
 
-    # 9. The kernels, with the numbers of this run; times per fitting step
+    # 10. B5 vs plain, every edge visible: the entry scene (canvas-sized
+    # triangles), the textured scene, and the inverse8 views through transform.
+    inv = scene_from_numpy(inverse8_scene_arrays(INV_HW, INV_GN, INV_VIEWS), dev)
+    cams = {k: inv[k] for k in CAMS}
+    inv_vi_wire = torch.from_numpy(with_edge_flags(inv["vi"].cpu().numpy())).to(dev)
+    with torch.no_grad():
+        inv_v_pix = tt.transform(inv["v_world"].expand(INV_VIEWS, -1, -1), **cams)
+    vi_wire = torch.from_numpy(with_edge_flags(vi.cpu().numpy())).to(dev)
+    b5 = {}
+    for scene, (sv, svi, hh, ww) in {
+        "entry": (entry[0], torch.from_numpy(with_edge_flags(entry[1].cpu().numpy())).to(dev), ENTRY_HW, ENTRY_HW),
+        "textured": (v, vi_wire, H, W),
+        "inverse8": (inv_v_pix, inv_vi_wire, INV_HW, INV_HW),
+    }.items():
+        svib = rast.broadcast_vi(svi, sv.shape[0])
+        setup, lines = rast.triangle_setup(sv, svib), rast.line_setup(sv, svib)
+        valid = rast._canvas_cull(setup, hh, ww)
+        rows, meta, ends = rasterize_cuda.pack_lines(setup, lines, valid, hh, ww, 0, hh)
+        d, i = rasterize_cuda.resolve_lines_packed(rows, meta, ends, hh, ww)
+        d_ref, i_ref = rast._rasterize_lines_plain(setup, lines, valid, hh, ww, 0, hh)
+        torch.cuda.synchronize()
+        rec = check_raster(f"B5 {scene}", d_ref, i_ref, d, i)
+        if not bool((i >= 0).any()):
+            raise AssertionError(f"B5 {scene}: no pixel indexed")
+        m = meta.long()
+        area = (m[..., 2] - m[..., 1] + 1).clamp(min=0) * (m[..., 4] - m[..., 3] + 1).clamp(min=0)
+        n_vis = ((m[..., 0] >> 3) & 1) + ((m[..., 0] >> 4) & 1) + ((m[..., 0] >> 5) & 1)
+        tests = int(ends[-1])
+        flops = int((area * (LINE_FLOPS_PER_TEST + LINE_FLOPS_PER_EDGE * n_vis)).sum())
+        nbytes = rows.numel() * 4 + meta.numel() * 4 + ends.numel() * 8 + d.numel() * (8 + 4 + 4)
+        bound_bytes_ms, bound_ops_ms = nbytes / bw * 1e3, flops / f32_flops * 1e3
+        ms_runs = [cuda_ms(lambda: rasterize_cuda.resolve_lines_packed(rows, meta, ends, hh, ww), 20)
+                   for _ in range(3)]
+        rec.update({
+            "H": hh, "W": ww, "batch": int(sv.shape[0]), "faces": int(svib.shape[1]),
+            "bit_exact": bool(torch.equal(d, d_ref) and torch.equal(i, i_ref)),
+            "indexed_pixels": int((i >= 0).sum()), "depth_only_pixels": int(((i < 0) & (d > 0)).sum()),
+            "ms": statistics.median(ms_runs), "ms_runs": ms_runs,
+            "plain_ms": cuda_ms(lambda: rast._rasterize_lines_plain(setup, lines, valid, hh, ww, 0, hh), 2, warmup=1),
+            "rasterize_call_ms": cuda_ms(lambda: tt.rasterize_with_depth(sv, svi, hh, ww, wireframe=True), 20),
+            "pixel_tests": tests, "flops": flops, "bytes": nbytes,
+            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+            "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations", "library_ms": None,
+        })
+        b5[scene] = rec
+        emit({"phase": "B5 vs plain", "scene": scene, **rec})
+
+    # 11. Row-tile viewports on the textured scene: H/4-row tiles from B1 and
+    # B5 equal the full frame's rows bit for bit, and their plain versions.
+    viewport = {}
+    for mode, (svi, wire) in {"B1": (vi, False), "B5": (vi_wire, True)}.items():
+        d_full, i_full = tt.rasterize_with_depth(v, svi, H, W, wireframe=wire)
+        tiles = []
+        for y0 in range(0, H, H // 4):
+            kw = dict(wireframe=wire, y_offset=y0, full_height=H)
+            d_t, i_t = tt.rasterize_with_depth(v, svi, H // 4, W, **kw)
+            d_p, i_p = tt.rasterize_with_depth(v, svi, H // 4, W, impl="plain", **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(i_t, i_full[:, y0 : y0 + H // 4]) and torch.equal(d_t, d_full[:, y0 : y0 + H // 4])):
+                raise AssertionError(f"viewport {mode} y_offset={y0}: the tile differs from the full frame's rows")
+            tiles.append({"y_offset": y0, **check_raster(f"viewport {mode} {y0} vs plain", d_p, i_p, d_t, i_t),
+                          "bit_exact_vs_plain": bool(torch.equal(d_t, d_p) and torch.equal(i_t, i_p))})
+        viewport[mode] = tiles
+    emit({"phase": "viewport", "scene": "textured", "rows": H // 4, "tiles_equal_full_frame": True, **viewport})
+
+    # 12. The wireframe path: every inverse8 view, transform then
+    # rasterize(wireframe=True), through the public entry points.
+    torch.cuda.synchronize()
+    tt.reset_kernel_launch_counts()
+    with torch.no_grad():
+        wire_idx = tt.rasterize(tt.transform(inv["v_world"].expand(INV_VIEWS, -1, -1), **cams), inv_vi_wire,
+                                INV_HW, INV_HW, wireframe=True)
+    torch.cuda.synchronize()
+    wire_launches = tt.kernel_launch_counts()
+    if wire_launches != {**{k: 0 for k in wire_launches}, "B5 rasterize_lines": 1}:
+        raise AssertionError(f"wireframe path: launches {wire_launches}, expected B5 once")
+    if wire_idx.shape != (INV_VIEWS, INV_HW, INV_HW) or not bool((wire_idx >= 0).flatten(1).any(1).all()):
+        raise AssertionError("wireframe path: a view with no indexed pixel, or the wrong shape")
+    with torch.no_grad():
+        wire_ms = cuda_ms(lambda: tt.rasterize(tt.transform(inv["v_world"].expand(INV_VIEWS, -1, -1), **cams),
+                                               inv_vi_wire, INV_HW, INV_HW, wireframe=True), 20)
+    emit({"phase": "wireframe path", "config": "inverse8", "views": INV_VIEWS, "H": INV_HW, "W": INV_HW,
+          "launches": wire_launches, "ms": wire_ms, "indexed_share": (wire_idx >= 0).float().mean().item()})
+
+    # 13. The main path of this slice: the inverse8 training step at full
+    # size (8 views of 512^2, 12,800 triangles, a 3x256x256 texture, Adam
+    # lr 1e-3), from bench.py's start: the vertices moved by 0.02 and a grey
+    # texture, against the image rendered once from the true ones.
+    with torch.no_grad():
+        img_gt, _ = render_multiview(inv["v_world"], inv["vi"], inv["vt"], inv["tex_gt"], cams, INV_HW, INV_HW)
+    inv_params = ((inv["v_world"] + 0.02).requires_grad_(), torch.full_like(inv["tex_gt"], 0.5).requires_grad_())
+    inv_opt = torch.optim.Adam(inv_params, lr=1e-3)
+    inv_args = (inv["vi"], inv["vt"], cams, img_gt, INV_HW, INV_HW)
+    inv_per_step = {"B1 rasterize": 1, "B2 gather_rows": 5, "B3 scatter_rows": 2, "B4 window_accum": 1,
+                    "B5 rasterize_lines": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tt.reset_kernel_launch_counts()
+    step_marks, host_s, losses = [], [], []
+    for _ in range(WARMUP + STEPS):
+        marks = []
+        t0 = time.perf_counter()
+        loss, grads = inverse8_step(inv_params, inv_opt, *inv_args, stage_times=marks)
+        host_s.append(time.perf_counter() - t0)
+        step_marks.append(marks)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    inv_launches = tt.kernel_launch_counts()
+    n_steps = WARMUP + STEPS
+    if inv_launches != {k: c * n_steps for k, c in inv_per_step.items()}:
+        raise AssertionError(f"inverse8 step: launches {inv_launches} over {n_steps} steps, expected {inv_per_step} "
+                             "per step")
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x.item() for x in losses]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"inverse8 step: the loss went from {losses[0]} to {losses[-1]}")
+    for leaf, g in grads.items():
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"inverse8 step: grad_{leaf} is not finite")
+    per_stage = [stage_ms(marks) for marks in step_marks[WARMUP:]]
+    step_ms = [sum(p.values()) for p in per_stage]
+    med_ms = statistics.median(step_ms)
+    fwd_stages = INVERSE8_STAGES[: INVERSE8_STAGES.index("loss") + 1]
+    profile = device_profile(lambda: inverse8_step(inv_params, inv_opt, *inv_args), PROFILED_STEPS)
+
+    # ...its B1 launch held against the plain rasterizer on the same views
+    # (8 x 512^2, 12,800 triangles each), then the step held against the
+    # plain pipeline on the kernel's index image, each side from a copy of
+    # the current parameters with an optimizer of its own.
+    with torch.no_grad():
+        inv_v_pix = tt.transform(inv_params[0].expand(INV_VIEWS, -1, -1), **cams)
+    b1["inverse8"] = b1_vs_plain("inverse8", inv_v_pix, inv["vi"], INV_HW, INV_HW)
+    idx_k = tt.rasterize(inv_v_pix, inv["vi"], INV_HW, INV_HW)
+    side = {}
+    for impl in ("auto", "plain"):
+        p = tuple(t.detach().clone().requires_grad_() for t in inv_params)
+        side[impl] = inverse8_step(p, torch.optim.Adam(p, lr=1e-3), *inv_args, index_img=idx_k, impl=impl)
+    (loss_k, grads_k), (loss_p, grads_p) = side["auto"], side["plain"]
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    if loss_err > 1e-5:
+        raise AssertionError(f"inverse8 step: loss differs from the plain pipeline's by {loss_err} relative")
+    inv_grad_err = {}
+    for leaf in ("v_world", "tex"):
+        inv_grad_err[leaf] = (grads_k[leaf] - grads_p[leaf]).abs().max().item() / grads_p[leaf].abs().max().item()
+        if not inv_grad_err[leaf] <= 1e-4:
+            raise AssertionError(f"inverse8 step: grad_{leaf} differs from the plain pipeline's by "
+                                 f"{inv_grad_err[leaf]} of its largest magnitude")
+    emit({
+        "phase": "inverse8 step", "config": "inverse8", "views": INV_VIEWS, "H": INV_HW, "W": INV_HW,
+        "faces": int(inv["vi"].shape[0]), "steps_timed": STEPS, "step_ms_median": med_ms,
+        "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
+        "mpix_per_s": INV_VIEWS * INV_HW * INV_HW / (med_ms * 1e-3) / 1e6,
+        "forward_ms_median": statistics.median(sum(p[k] for k in fwd_stages) for p in per_stage),
+        "backward_ms_median": statistics.median(
+            sum(p[k] for k in BACKWARD_STAGES + ("transform_bwd",)) for p in per_stage),
+        "host_ms_per_call_median": statistics.median(host_s[WARMUP:]) * 1e3,
+        "stage_ms_median": {k: statistics.median(p[k] for p in per_stage) for k in INVERSE8_STAGES},
+        "peak_mem_bytes": peak, "launches": inv_launches, "launches_per_step": inv_per_step,
+        "loss_first": losses[0], "loss_last": losses[-1], "coverage": (idx_k >= 0).float().mean().item(),
+        "loss_rel_err_vs_plain": loss_err, "grad_rel_err_vs_plain": inv_grad_err, "profile": profile,
+    })
+
+    # 14. The kernels, with the numbers of this run; times per fitting step
     # (B2: K=9 and K=6 in the forward, again in the backward, and K=16 in
     # edge_grad's backward; B3: K=9 in render's and edge_grad's backward,
     # K=6 in interpolate's).
@@ -429,13 +620,19 @@ def main() -> int:
     def b3_step(key):
         return 2 * b3[9][key] + b3[6][key]
 
+    by_path = {"fit_step": main_launches, "inverse8_step": inv_launches, "wireframe": wire_launches}
+
+    def paths(key):
+        return {path: counts[key] for path, counts in by_path.items()}
+
     kernels = [
         {"name": "B1 rasterize_pallas._tile_kernel", "route": "cuda",
          "source": "drtk_tpu_torch/csrc/rasterize.cu", "replaces": "drtk_tpu/ops/rasterize_pallas.py:257",
          "launches": main_launches["B1 rasterize"], "launches_per_step": 1,
          "max_abs_err": b1["textured"]["max_abs_depth_err"],
          "ms": b1["textured"]["ms"], "plain_ms": b1["textured"]["plain_ms"],
-         "bound_ms": b1["textured"]["bound_ms"], "bound_by": b1["textured"]["bound_by"], "library_ms": None},
+         "bound_ms": b1["textured"]["bound_ms"], "bound_by": b1["textured"]["bound_by"], "library_ms": None,
+         "by_scene": {sc: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bit_exact")} for sc, r in b1.items()}},
         {"name": "B2 segment_rows._gather_kernel", "route": "cuda",
          "source": "drtk_tpu_torch/csrc/gather_rows.cu", "replaces": "drtk_tpu/ops/segment_rows.py:359",
          "launches": main_launches["B2 gather_rows"], "launches_per_step": 5, "max_abs_err": 0.0,
@@ -452,7 +649,16 @@ def main() -> int:
          "launches": main_launches["B4 window_accum"], "launches_per_step": 1, "max_abs_err": b4["max_abs_err"],
          "ms": b4["ms"], "plain_ms": b4["plain_ms"], "bound_ms": b4["bound_ms"], "bound_by": "bytes",
          "library_ms": b4["library_ms"]},
+        {"name": "B5 rasterize_pallas._lines_tile_kernel", "route": "cuda",
+         "source": "drtk_tpu_torch/csrc/rasterize_lines.cu", "replaces": "drtk_tpu/ops/rasterize_pallas.py:715",
+         "launches": wire_launches["B5 rasterize_lines"], "launches_per_step": 1,
+         "max_abs_err": b5["inverse8"]["max_abs_depth_err"], "ms": b5["inverse8"]["ms"],
+         "plain_ms": b5["inverse8"]["plain_ms"], "bound_ms": b5["inverse8"]["bound_ms"],
+         "bound_by": b5["inverse8"]["bound_by"], "library_ms": None},
     ]
+    for row, key in zip(kernels, ("B1 rasterize", "B2 gather_rows", "B3 scatter_rows", "B4 window_accum",
+                                  "B5 rasterize_lines")):
+        row["launches_by_path"] = paths(key)
     emit({"kernels": kernels})
     if "jax" in sys.modules or "drtk_tpu" in sys.modules:
         raise AssertionError("the port imported JAX or the JAX package")

@@ -1,15 +1,17 @@
 """drtk_tpu_torch: the PyTorch and CUDA port of drtk_tpu.
 
-The differentiable render path of the JAX package, ``rasterize -> render ->
-interpolate -> grid_sample -> edge_grad_estimator``, with the same public
-signatures and contracts, forward and backward: ``loss.backward()`` through
-the public ops reaches the vertices, the uvs and the texture, and
-:func:`fit_step` runs one fitting step of the textured pipeline. On CUDA
-tensors the rasterizer's resolve (B1), the per-pixel face-row gather (B2),
-the pixel-to-face row accumulation (B3) and the texture-gradient scatter
-(B4) run as hand-written kernels for Hopper (sm_90a), built with nvcc at
-first use; on CPU tensors their plain PyTorch versions run. Nothing is
-compiled when the package is imported.
+The differentiable render path of the JAX package, ``transform ->
+rasterize -> render -> interpolate -> grid_sample -> edge_grad_estimator``,
+with the same public signatures and contracts, forward and backward:
+``loss.backward()`` through the public ops reaches the world-space
+vertices, the cameras, the uvs and the texture; :func:`fit_step` runs one
+fitting step of the textured pipeline and :func:`inverse8_step` one step of
+the multi-view inverse-rendering fit. On CUDA tensors the rasterizer's
+resolve (B1), its wireframe resolve (B5), the per-pixel face-row gather
+(B2), the pixel-to-face row accumulation (B3) and the texture-gradient
+scatter (B4) run as hand-written kernels for Hopper (sm_90a), built with
+nvcc at first use; on CPU tensors their plain PyTorch versions run.
+Nothing is compiled when the package is imported.
 """
 
 from drtk_tpu_torch.ops import rasterize_cuda as _rasterize_cuda
@@ -21,7 +23,8 @@ from drtk_tpu_torch.ops.grid_sample import grid_sample
 from drtk_tpu_torch.ops.interpolate import interpolate, interpolate_ref
 from drtk_tpu_torch.ops.rasterize import rasterize, rasterize_with_depth
 from drtk_tpu_torch.ops.render import render, render_ref
-from drtk_tpu_torch.pipeline import fit_step
+from drtk_tpu_torch.pipeline import fit_step, inverse8_step, render_multiview
+from drtk_tpu_torch.transform import transform, transform_with_v_cam
 
 __all__ = [
     "edge_grad_estimator",
@@ -31,12 +34,16 @@ __all__ = [
     "grid_sample",
     "interpolate",
     "interpolate_ref",
+    "inverse8_step",
     "kernel_launch_counts",
     "rasterize",
     "rasterize_with_depth",
     "render",
+    "render_multiview",
     "render_ref",
     "reset_kernel_launch_counts",
+    "transform",
+    "transform_with_v_cam",
 ]
 
 __version__ = "0.1.0"
@@ -49,6 +56,7 @@ def kernel_launch_counts() -> dict[str, int]:
         "B2 gather_rows": _segment_rows.launches,
         "B3 scatter_rows": _segment_rows.scatter_launches,
         "B4 window_accum": _window_accum.launches,
+        "B5 rasterize_lines": _rasterize_cuda.lines_launches,
     }
 
 
@@ -58,3 +66,4 @@ def reset_kernel_launch_counts() -> None:
     _segment_rows.launches = 0
     _segment_rows.scatter_launches = 0
     _window_accum.launches = 0
+    _rasterize_cuda.lines_launches = 0

@@ -18,6 +18,10 @@
 //   (di >= 0 on covered pixels, so the float bits order like the floats).
 //   A second kernel unpacks: depth = 1 / max(di, 1e-8), index = id, and
 //   depth 0 / index -1 where the id field is still 0xFFFFFFFF.
+//   Row-tile viewports: the wrapper clips the pixel ranges to the frame rows
+//   [y_offset, y_offset + height); edge values use the frame's y and the
+//   key of row y lands in row y - y_offset, so a tile equals the same rows
+//   of the full frame bit for bit.
 //   Every product and sum is rounded on its own (__fmul_rn / __fadd_rn), in
 //   the order of the plain version, so nvcc cannot contract them into FMAs
 //   and the kernel agrees with the plain version bit for bit.
@@ -50,7 +54,8 @@ __global__ void resolve_kernel(const float* __restrict__ coef,
                                const int32_t* __restrict__ meta,
                                unsigned long long* __restrict__ keys,
                                int32_t n_batch, int32_t n_faces,
-                               int32_t height, int32_t width) {
+                               int32_t height, int32_t width,
+                               int32_t y_offset) {
   const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (t >= static_cast<int64_t>(n_batch) * n_faces) return;
   const int32_t batch = static_cast<int32_t>(t / n_faces);
@@ -70,7 +75,7 @@ __global__ void resolve_kernel(const float* __restrict__ coef,
   unsigned long long* kb = keys + static_cast<int64_t>(batch) * height * width;
   for (int32_t y = y_lo; y <= y_hi; ++y) {
     const float py = static_cast<float>(y);
-    unsigned long long* krow = kb + static_cast<int64_t>(y) * width;
+    unsigned long long* krow = kb + static_cast<int64_t>(y - y_offset) * width;
     for (int32_t x = x_lo; x <= x_hi; ++x) {
       const float px = static_cast<float>(x);
       const float e0 = edge(ea0, eb0, ec0, px, py);
@@ -113,13 +118,14 @@ __global__ void unpack_kernel(const unsigned long long* __restrict__ keys,
 
 extern "C" {
 
-// coef [N, F, 12] f32, meta [N, F, 5] int32, keys [N, H, W] uint64 scratch,
+// coef [N, F, 12] f32, meta [N, F, 5] int32 (pixel ranges in frame rows
+// within [y_offset, y_offset + height)), keys [N, H, W] uint64 scratch,
 // depth [N, H, W] f32, index [N, H, W] int32; all contiguous, on the device
 // of `stream`. Returns the first CUDA error of the memset and both launches.
 int drtk_rasterize_f32(const void* coef, const void* meta, void* keys,
                        void* depth, void* index, int32_t n_batch,
                        int32_t n_faces, int32_t height, int32_t width,
-                       void* stream) {
+                       int32_t y_offset, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t n_pix = static_cast<int64_t>(n_batch) * height * width;
   cudaError_t err = cudaMemsetAsync(keys, 0xFF, n_pix * sizeof(kEmpty), s);
@@ -131,7 +137,7 @@ int drtk_rasterize_f32(const void* coef, const void* meta, void* keys,
                      kThreads, 0, s>>>(
         static_cast<const float*>(coef), static_cast<const int32_t*>(meta),
         static_cast<unsigned long long*>(keys), n_batch, n_faces, height,
-        width);
+        width, y_offset);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

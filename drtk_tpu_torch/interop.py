@@ -1,8 +1,11 @@
 """Carry a scene between numpy (and so the JAX package) and this package.
 
-A rasterizer has no weights: its state is the scene. The JAX package's
-inputs come over as ``np.asarray(jax_array)`` and go through
-:func:`scene_from_numpy`; :func:`to_numpy` brings results back.
+A rasterizer has no weights: its state is the scene (geometry, textures,
+cameras) and, in a fit, the optimizer's moments. The JAX package's inputs
+come over as ``np.asarray(jax_array)`` and go through
+:func:`scene_from_numpy`; an optax Adam state goes into a
+``torch.optim.Adam`` through :func:`adam_state_from_optax`;
+:func:`to_numpy` brings results back.
 """
 
 from __future__ import annotations
@@ -12,10 +15,13 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "scene_from_numpy", "to_numpy"]
+__all__ = ["adam_state_from_optax", "resolve_device", "scene_from_numpy", "to_numpy"]
 
 # Expected rank and, for the index buffer, dtype of each scene array.
-_RANKS = {"v": (3,), "vi": (2, 3), "vt": (3,), "tex": (4,), "weight": (4,)}
+_RANKS = {
+    "v": (3,), "vi": (2, 3), "vt": (3,), "tex": (4,), "weight": (4,), "v_world": (3,), "tex_gt": (4,),
+    "campos": (2,), "camrot": (3,), "focal": (3,), "princpt": (2,), "K": (3,), "Rt": (3,),
+}
 
 
 def resolve_device(device) -> torch.device:
@@ -37,7 +43,12 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> dict[st
         arrays: any of ``v`` [N, V, 3] float, ``vi`` [F, 3] or [N, F, 3]
             int32, ``vt`` [N, V, 2] float, ``tex`` [N, C, Ht, Wt] float,
             ``weight`` [N, C, H, W] float (the weight image of a fitting
-            loss, see :func:`drtk_tpu_torch.pipeline.textured_loss`).
+            loss, see :func:`drtk_tpu_torch.pipeline.textured_loss`),
+            ``v_world`` [N, V, 3] and ``tex_gt`` [N, C, Ht, Wt] float (a
+            multi-view fit's world-space vertices and target texture), and
+            the cameras, float: ``campos`` [N, 3], ``camrot`` [N, 3, 3],
+            ``focal`` [N, 2, 2], ``princpt`` [N, 2], ``K`` [N, 3, 3],
+            ``Rt`` [N, 3, 4].
             Float arrays keep their dtype; ``vi`` must be int32, as the
             JAX package requires.
         device: target device; "cuda" raises when CUDA is absent.
@@ -65,3 +76,28 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> dict[st
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A tensor's values as a numpy array on the host."""
     return t.detach().cpu().numpy()
+
+
+def adam_state_from_optax(optimizer: torch.optim.Adam, mu, nu, count) -> None:
+    """Fill ``optimizer``'s state from optax's ``ScaleByAdamState``, so a fit
+    started with ``optax.adam`` continues with the same moments.
+
+    Args:
+        optimizer: a ``torch.optim.Adam`` with one parameter group, whose
+            parameters are in the order of optax's parameter pytree leaves.
+        mu, nu: the first and second moments, sequences of numpy arrays, one
+            per parameter and of its shape.
+        count: optax's step count (the updates taken so far).
+    """
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    mu, nu = [np.asarray(m) for m in mu], [np.asarray(m) for m in nu]
+    if not len(params) == len(mu) == len(nu):
+        raise ValueError(f"adam_state_from_optax: {len(params)} parameters, {len(mu)} mu, {len(nu)} nu")
+    for p, m, v in zip(params, mu, nu):
+        if m.shape != tuple(p.shape) or v.shape != tuple(p.shape):
+            raise ValueError(f"adam_state_from_optax: moments of shape {m.shape}, {v.shape} for {tuple(p.shape)}")
+        optimizer.state[p] = {
+            "step": torch.tensor(float(np.asarray(count)), dtype=torch.float32),
+            "exp_avg": torch.from_numpy(np.array(m)).to(p),
+            "exp_avg_sq": torch.from_numpy(np.array(v)).to(p),
+        }

@@ -1,9 +1,12 @@
-"""Kernel B1's wrapper: the per-pixel z-buffer resolve on the card
-(counterpart of ``drtk_tpu/ops/rasterize_pallas.py``).
+"""Wrappers of kernels B1 and B5, the rasterizer's per-pixel resolves on
+the card (counterparts of ``drtk_tpu/ops/rasterize_pallas.py``).
 
-The triangle setup (``triangle_setup`` and the canvas cull) stays in torch;
-:func:`pack_setup` packs it into one row per triangle and
-``csrc/rasterize.cu`` resolves and unpacks it to (depth, index).
+The triangle setup (``triangle_setup``, ``line_setup`` and the canvas cull)
+stays in torch. :func:`pack_setup` packs it into one row per triangle for
+``csrc/rasterize.cu`` (B1, filled triangles); :func:`pack_lines` into one
+row per triangle plus the running count of window pixels for
+``csrc/rasterize_lines.cu`` (B5, wireframe). Both kernels resolve into a
+64-bit key per pixel and unpack it to (depth, index).
 """
 
 from __future__ import annotations
@@ -14,71 +17,90 @@ from typing import Tuple
 import torch
 
 from drtk_tpu_torch import _build
-from drtk_tpu_torch.ops.rasterize import TriangleSetup, _canvas_cull, triangle_setup
+from drtk_tpu_torch.ops.rasterize import (
+    LineSetup,
+    TriangleSetup,
+    _canvas_cull,
+    line_ranges,
+    line_setup,
+    pixel_windows,
+    triangle_setup,
+)
 
-__all__ = ["pack_setup", "rasterize_cuda"]
+__all__ = ["pack_lines", "pack_setup", "rasterize_cuda", "rasterize_lines_cuda"]
 
-# Launches of kernel B1 since the last reset (see drtk_tpu_torch.kernel_launch_counts).
+# Launches of kernels B1 and B5 since the last reset (see
+# drtk_tpu_torch.kernel_launch_counts).
 launches = 0
+lines_launches = 0
 
 SETUP_FLOATS = 12  # ea[3], eb[3], ec[3], q[3]
 SETUP_INTS = 5  # top-left bits, x_lo, x_hi, y_lo, y_hi
+LINE_FLOATS = 19  # ea[3], eb[3], ec[3], p0 p1 p2 (x, y), d_inv[3], inv_den
+LINE_INTS = 5  # top-left bits | visibility bits << 3, x_lo, x_hi, y_lo, y_hi
+
+
+def _window_meta(bits, x0, x1, y0, y1, valid):
+    """[N, F, 5] int32 rows (bits, x_lo, x_hi, y_lo, y_hi); culled
+    triangles get an empty x range."""
+    x1 = torch.where(valid, x1, x0 - 1)
+    meta = torch.stack([x0, x1, y0, y1], dim=-1).to(torch.int32)
+    return torch.cat([bits[..., None], meta], dim=-1).contiguous()
+
+
+def _topleft_bits(setup: TriangleSetup) -> torch.Tensor:
+    tl = setup.topleft.to(torch.int32)
+    return tl[..., 0] | (tl[..., 1] << 1) | (tl[..., 2] << 2)
+
+
+def _check_rows(name, rows, meta, n_floats, n_ints):
+    if rows.device.type != "cuda" or meta.device != rows.device:
+        raise ValueError(f"{name}: setup rows must lie on one CUDA device")
+    if rows.dtype != torch.float32 or meta.dtype != torch.int32:
+        raise TypeError(f"{name}: expected f32 rows and int32 meta")
+    n, f_cnt, width_r = rows.shape
+    if width_r != n_floats or meta.shape != (n, f_cnt, n_ints):
+        raise ValueError(f"{name}: bad setup shapes {tuple(rows.shape)}, {tuple(meta.shape)}")
+    if not (rows.is_contiguous() and meta.is_contiguous()):
+        raise ValueError(f"{name}: setup rows must be contiguous")
+    if n * f_cnt >= 2**31:
+        raise ValueError(f"{name}: at most 2**31 - 1 triangles per launch")
+    return n, f_cnt
 
 
 def pack_setup(
-    setup: TriangleSetup, valid: torch.Tensor, height: int, width: int
+    setup: TriangleSetup, valid: torch.Tensor, height: int, width: int, y_offset: int = 0
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pack the setup into ``coef [N, F, 12] f32`` and ``meta [N, F, 5]
-    int32``. The pixel range of a triangle runs, inclusive, from the floor
-    of its bbox minimum to the ceiling of its maximum, clipped to the
-    canvas: every pixel centre less than a pixel outside the bbox is
-    tested, as in the plain version. Culled triangles get an empty range."""
+    int32``. A triangle's pixel range runs, inclusive, from the floor of its
+    bbox minimum to the ceiling of its maximum, clipped to the viewport's
+    rows ``[y_offset, y_offset + height)`` and columns: every pixel centre
+    less than a pixel outside the bbox is tested, as in the plain version.
+    Culled triangles get an empty range."""
     coef = torch.cat([setup.ea, setup.eb, setup.ec, setup.q], dim=-1).to(torch.float32)
-    tl = setup.topleft.to(torch.int32)
-    tl_bits = tl[..., 0] | (tl[..., 1] << 1) | (tl[..., 2] << 2)
-    # Clamp before rounding so huge or infinite coordinates convert safely;
-    # NaN coordinates only occur on triangles whose edge tests all fail.
-    lim = float(max(height, width) + 2)
-    b = torch.nan_to_num(setup.bbox, nan=0.0, posinf=lim, neginf=-lim).clamp(-lim, lim)
-    x_lo = torch.floor(b[..., 0]).clamp(min=0)
-    y_lo = torch.floor(b[..., 1]).clamp(min=0)
-    x_hi = torch.ceil(b[..., 2]).clamp(max=width - 1)
-    y_hi = torch.ceil(b[..., 3]).clamp(max=height - 1)
-    x_hi = torch.where(valid, x_hi, torch.full_like(x_hi, -1.0))
-    meta = torch.stack([x_lo, x_hi, y_lo, y_hi], dim=-1).to(torch.int32)
-    meta = torch.cat([tl_bits[..., None], meta], dim=-1)
-    return coef.contiguous(), meta.contiguous()
+    windows = pixel_windows(setup.bbox, (0, width - 1), (y_offset, y_offset + height - 1))
+    return coef.contiguous(), _window_meta(_topleft_bits(setup), *windows, valid)
 
 
 def resolve_packed(
-    coef: torch.Tensor, meta: torch.Tensor, height: int, width: int
+    coef: torch.Tensor, meta: torch.Tensor, height: int, width: int, y_offset: int = 0
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel B1 on packed setup rows; returns (depth f32, index i32),
-    each [N, H, W]."""
+    each [N, H, W], rows [y_offset, y_offset + height) of the frame."""
     global launches
-    if coef.device.type != "cuda" or meta.device != coef.device:
-        raise ValueError("rasterize_cuda: setup rows must lie on one CUDA device")
-    if coef.dtype != torch.float32 or meta.dtype != torch.int32:
-        raise TypeError("rasterize_cuda: expected f32 coef and int32 meta")
-    n, f_cnt, width_c = coef.shape
-    if width_c != SETUP_FLOATS or meta.shape != (n, f_cnt, SETUP_INTS):
-        raise ValueError(f"rasterize_cuda: bad setup shapes {tuple(coef.shape)}, {tuple(meta.shape)}")
-    if not (coef.is_contiguous() and meta.is_contiguous()):
-        raise ValueError("rasterize_cuda: setup rows must be contiguous")
-    if n * f_cnt >= 2**31:
-        raise ValueError("rasterize_cuda: at most 2**31 - 1 triangles per launch")
+    n, f_cnt = _check_rows("rasterize_cuda", coef, meta, SETUP_FLOATS, SETUP_INTS)
     dev = coef.device
     keys = torch.empty((n, height, width), dtype=torch.int64, device=dev)
     depth = torch.empty((n, height, width), dtype=torch.float32, device=dev)
     index = torch.empty((n, height, width), dtype=torch.int32, device=dev)
     lib = _build.load("rasterize")
     fn = lib.drtk_rasterize_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int32] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int32] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(
         coef.data_ptr(), meta.data_ptr(), keys.data_ptr(), depth.data_ptr(),
-        index.data_ptr(), n, f_cnt, height, width, stream,
+        index.data_ptr(), n, f_cnt, height, width, y_offset, stream,
     )
     _build.check(lib, err, "rasterize kernel")
     launches += 1
@@ -86,14 +108,88 @@ def resolve_packed(
 
 
 def rasterize_cuda(
-    v: torch.Tensor, vi: torch.Tensor, height: int, width: int
+    v: torch.Tensor, vi: torch.Tensor, height: int, width: int, y_offset: int, full_height: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rasterize validated ``v [N, V, 3]``, ``vi [N, F, 3]`` int32 with
     kernel B1. The setup is computed in float32 whatever the dtype of
     ``v``, as the TPU kernel does; the depth comes back in that dtype.
-    Returns (depth [N, H, W], index [N, H, W] int32), 0 / -1 at background."""
+    Returns (depth [N, H, W], index [N, H, W] int32), 0 / -1 at background,
+    rows [y_offset, y_offset + height) of a ``full_height``-row frame."""
     setup = triangle_setup(v.to(torch.float32), vi)
-    valid = _canvas_cull(setup, height, width)
-    coef, meta = pack_setup(setup, valid, height, width)
-    depth, index = resolve_packed(coef, meta, height, width)
+    valid = _canvas_cull(setup, full_height, width)
+    coef, meta = pack_setup(setup, valid, height, width, y_offset)
+    depth, index = resolve_packed(coef, meta, height, width, y_offset)
+    return depth.to(v.dtype), index
+
+
+def pack_lines(
+    setup: TriangleSetup,
+    lines: LineSetup,
+    valid: torch.Tensor,
+    height: int,
+    width: int,
+    y_offset: int,
+    full_height: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pack the wireframe setup into ``rows [N, F, 19] f32``, ``meta
+    [N, F, 5] int32`` and ``ends [N*F] int64``. A triangle's window is its
+    bbox grown by one pixel on every side (a diamond reaches half a pixel
+    beyond a segment's bbox), clipped to the pixels the viewport may write
+    (:func:`~drtk_tpu_torch.ops.rasterize.line_ranges`); ``ends`` is the
+    inclusive running sum of the window areas, from which each thread of
+    kernel B5 finds its (triangle, pixel)."""
+    p, d_inv, inv_den, vis = lines
+    n, f_cnt = valid.shape
+    rows = torch.cat(
+        [setup.ea, setup.eb, setup.ec, p.reshape(n, f_cnt, 6), d_inv, inv_den[..., None]], dim=-1
+    ).to(torch.float32)
+    vis_i = vis.to(torch.int32)
+    bits = _topleft_bits(setup) | (vis_i[..., 0] << 3) | (vis_i[..., 1] << 4) | (vis_i[..., 2] << 5)
+    x_range, y_range = line_ranges(height, width, y_offset, full_height)
+    meta = _window_meta(bits, *pixel_windows(setup.bbox, x_range, y_range, grow=1), valid)
+    m = meta.long()
+    area = (m[..., 2] - m[..., 1] + 1).clamp(min=0) * (m[..., 4] - m[..., 3] + 1).clamp(min=0)
+    return rows.contiguous(), meta, torch.cumsum(area.reshape(-1), 0)
+
+
+def resolve_lines_packed(
+    rows: torch.Tensor, meta: torch.Tensor, ends: torch.Tensor, height: int, width: int, y_offset: int = 0
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel B5 on packed wireframe rows; returns (depth f32, index
+    i32), each [N, H, W], rows [y_offset, y_offset + height) of the frame."""
+    global lines_launches
+    n, f_cnt = _check_rows("rasterize_lines_cuda", rows, meta, LINE_FLOATS, LINE_INTS)
+    if ends.dtype != torch.int64 or ends.shape != (n * f_cnt,) or ends.device != rows.device:
+        raise ValueError("rasterize_lines_cuda: ends must be int64 [N*F] beside the rows")
+    dev = rows.device
+    keys = torch.empty((n, height, width), dtype=torch.int64, device=dev)
+    depth = torch.empty((n, height, width), dtype=torch.float32, device=dev)
+    index = torch.empty((n, height, width), dtype=torch.int32, device=dev)
+    lib = _build.load("rasterize_lines")
+    fn = lib.drtk_rasterize_lines_f32
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int32] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(
+        rows.data_ptr(), meta.data_ptr(), ends.data_ptr(), keys.data_ptr(), depth.data_ptr(),
+        index.data_ptr(), n, f_cnt, height, width, y_offset, stream,
+    )
+    _build.check(lib, err, "rasterize_lines kernel")
+    lines_launches += 1
+    return depth, index
+
+
+def rasterize_lines_cuda(
+    v: torch.Tensor, vi: torch.Tensor, height: int, width: int, y_offset: int, full_height: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Wireframe-rasterize validated ``v [N, V, 3]``, ``vi [N, F, 3]``
+    int32 (edge-visibility bits in ``vi[..., 0]``) with kernel B5, the setup
+    in float32 as for :func:`rasterize_cuda`. Returns (depth [N, H, W],
+    index [N, H, W] int32), rows [y_offset, y_offset + height) of a
+    ``full_height``-row frame."""
+    v32 = v.to(torch.float32)
+    setup = triangle_setup(v32, vi)
+    valid = _canvas_cull(setup, full_height, width)
+    rows, meta, ends = pack_lines(setup, line_setup(v32, vi), valid, height, width, y_offset, full_height)
+    depth, index = resolve_lines_packed(rows, meta, ends, height, width, y_offset)
     return depth.to(v.dtype), index

@@ -3,6 +3,12 @@
 JAX package's single-chip step (``__graft_entry__._forward``), and the
 fitting step on it: the loss of ``bench.py`` (``bench_textured``,
 ``_grad_case_textured``) and one backward to ``v``, ``vt`` and ``tex``.
+
+The multi-view path of ``bench.py:bench_inverse8``: one world-space mesh
+broadcast to every camera, ``transform`` to pixel space, the same pipeline
+with an rgb-plus-silhouette image, and the training step on it (squared
+error to a target image, one backward to the world vertices and the
+texture through the cameras, an Adam update).
 """
 
 from __future__ import annotations
@@ -15,9 +21,11 @@ from drtk_tpu_torch.ops.grid_sample import grid_sample
 from drtk_tpu_torch.ops.interpolate import interpolate
 from drtk_tpu_torch.ops.rasterize import rasterize
 from drtk_tpu_torch.ops.render import render
+from drtk_tpu_torch.transform import transform
 
 __all__ = [
-    "BACKWARD_STAGES", "FIT_STAGES", "STAGES", "fit_step", "render_textured", "stage_ms", "textured_loss",
+    "BACKWARD_STAGES", "FIT_STAGES", "INVERSE8_STAGES", "MULTIVIEW_STAGES", "STAGES", "fit_step",
+    "inverse8_step", "render_multiview", "render_textured", "stage_ms", "textured_loss",
 ]
 
 STAGES = ("rasterize", "render", "interpolate", "grid_sample", "mask", "edge_grad")
@@ -27,6 +35,10 @@ STAGES = ("rasterize", "render", "interpolate", "grid_sample", "mask", "edge_gra
 BACKWARD_STAGES = ("edge_grad_bwd", "grid_sample_bwd", "interpolate_bwd", "render_bwd")
 FIT_STAGES = STAGES + ("loss",) + BACKWARD_STAGES
 FIT_LEAVES = ("v", "vt", "tex")
+MULTIVIEW_STAGES = ("transform",) + STAGES
+# render_bwd ends when the gradient of the pixel-space vertices is ready,
+# transform_bwd when the world vertices' is; adam is the optimizer update.
+INVERSE8_STAGES = MULTIVIEW_STAGES + ("loss",) + BACKWARD_STAGES + ("transform_bwd", "adam")
 
 
 def _marker(stage_times: list | None):
@@ -48,6 +60,36 @@ def _marker(stage_times: list | None):
             grad_of.register_hook(lambda _grad: record(name))
 
     return mark
+
+
+def _check_devices(fn: str, device, tensors) -> torch.device:
+    dev = resolve_device(device)
+    for name, t in tensors.items():
+        if t is not None and (t.device.type != dev.type or dev.index not in (None, t.device.index)):
+            raise ValueError(f"{fn}: {name} is on {t.device}, expected {dev}")
+    return dev
+
+
+def _shade(fn: str, v, vi, vt, tex, h: int, w: int, impl: str, mark, index_img):
+    """The stages every renderer shares, each marked: rasterize (unless
+    ``index_img`` is given), render, interpolate the uvs, bilinear border
+    ``grid_sample`` of the texture. Returns (rgb [N, C, H, W], mask
+    [N, 1, H, W] of rgb's dtype, bary_img, index_img)."""
+    if index_img is None:
+        index_img = rasterize(v, vi, h, w, impl=impl)
+    elif tuple(index_img.shape) != (v.shape[0], h, w) or index_img.dtype != torch.int32:
+        raise ValueError(f"{fn}: expected an int32 index_img of shape {(v.shape[0], h, w)}")
+    mark("rasterize")
+    _, bary_img = render(v, vi, index_img, impl=impl)
+    mark("render")
+    mark("interpolate_bwd", bary_img)
+    vt_img = interpolate(vt, vi, index_img, bary_img, impl=impl)  # [N, 2, H, W]
+    mark("interpolate")
+    uv = vt_img.movedim(1, -1) * 2.0 - 1.0
+    mark("grid_sample_bwd", uv)
+    rgb = grid_sample(tex, uv, mode="bilinear", padding_mode="border", impl=impl)
+    mark("grid_sample")
+    return rgb, (index_img != -1)[:, None].to(rgb.dtype), bary_img, index_img
 
 
 def render_textured(
@@ -84,30 +126,14 @@ def render_textured(
     Returns:
         (img [N, C, H, W], index_img [N, H, W] int32).
     """
-    dev = resolve_device(device)
-    for name, t in (("v", v), ("vi", vi), ("vt", vt), ("tex", tex), ("index_img", index_img)):
-        if t is not None and (t.device.type != dev.type or dev.index not in (None, t.device.index)):
-            raise ValueError(f"render_textured: {name} is on {t.device}, expected {dev}")
+    dev = _check_devices("render_textured", device, {"v": v, "vi": vi, "vt": vt, "tex": tex, "index_img": index_img})
     if stage_times is not None and dev.type != "cuda":
         raise ValueError("render_textured: stage_times needs a CUDA device")
     mark = _marker(stage_times)
 
     mark("start")
-    if index_img is None:
-        index_img = rasterize(v, vi, h, w, impl=impl)
-    elif tuple(index_img.shape) != (v.shape[0], h, w) or index_img.dtype != torch.int32:
-        raise ValueError(f"render_textured: expected an int32 index_img of shape {(v.shape[0], h, w)}")
-    mark("rasterize")
-    _, bary_img = render(v, vi, index_img, impl=impl)
-    mark("render")
-    mark("interpolate_bwd", bary_img)
-    vt_img = interpolate(vt, vi, index_img, bary_img, impl=impl)  # [N, 2, H, W]
-    mark("interpolate")
-    uv = vt_img.movedim(1, -1) * 2.0 - 1.0
-    mark("grid_sample_bwd", uv)
-    img = grid_sample(tex, uv, mode="bilinear", padding_mode="border", impl=impl)
-    mark("grid_sample")
-    img = img * (index_img != -1)[:, None]
+    rgb, maskf, bary_img, index_img = _shade("render_textured", v, vi, vt, tex, h, w, impl, mark, index_img)
+    img = rgb * maskf
     mark("mask")
     mark("edge_grad_bwd", img)
     img = edge_grad_estimator(v_pix=v, vi=vi, bary_img=bary_img, img=img, index_img=index_img, impl=impl)
@@ -176,6 +202,125 @@ def fit_step(
     grads = torch.autograd.grad(loss, [inputs[k] for k in wrt])
     mark("render_bwd")
     return loss.detach(), dict(zip(wrt, grads))
+
+
+def render_multiview(
+    v_world: torch.Tensor,
+    vi: torch.Tensor,
+    vt: torch.Tensor,
+    tex: torch.Tensor,
+    cams: dict,
+    h: int,
+    w: int,
+    device="cuda",
+    impl: str = "auto",
+    stage_times: list | None = None,
+    index_img: torch.Tensor | None = None,
+):
+    """Render one mesh from every camera, op for op as the forward of
+    ``bench.py:bench_inverse8``: broadcast to the views, ``transform``,
+    rasterize, render, interpolate the uvs, bilinear border ``grid_sample``
+    of the texture, ``cat([rgb * mask, mask])``, ``edge_grad_estimator``.
+
+    Args:
+        v_world: [1, V, 3] world-space vertices; vi: [F, 3] int32 faces;
+        vt: [1, V, 2] uvs in [0, 1]; tex: [1, C, Ht, Wt] texture.
+        cams: the camera tensors, each with one row per view, as keyword
+            arguments of :func:`~drtk_tpu_torch.transform.transform`
+            (``campos``, ``camrot``, ``focal``, ``princpt``, or ``K``,
+            ``Rt``).
+        h, w: canvas size of every view.
+        device, impl, index_img: as for :func:`render_textured`
+            (``index_img`` is [views, H, W]).
+        stage_times: as for :func:`render_textured`, with the marks of
+            :data:`MULTIVIEW_STAGES`; a backward pass through the result
+            appends those of :data:`BACKWARD_STAGES` (``render_bwd`` when
+            the gradient of the pixel-space vertices is complete).
+
+    Returns:
+        (img [views, C + 1, H, W], index_img [views, H, W] int32): the
+        masked rgb and the silhouette.
+    """
+    dev = _check_devices(
+        "render_multiview", device,
+        {"v_world": v_world, "vi": vi, "vt": vt, "tex": tex, "index_img": index_img, **cams},
+    )
+    if stage_times is not None and dev.type != "cuda":
+        raise ValueError("render_multiview: stage_times needs a CUDA device")
+    if v_world.ndim != 3 or v_world.shape[0] != 1 or vt.shape[0] != 1 or tex.shape[0] != 1:
+        raise ValueError("render_multiview: expected one mesh, uv set and texture (batch 1)")
+    mark = _marker(stage_times)
+    views = next(iter(cams.values())).shape[0]
+
+    mark("start")
+    v_pix = transform(v_world.expand(views, -1, -1), **cams)
+    mark("transform")
+    mark("render_bwd", v_pix)
+    rgb, maskf, bary, index_img = _shade(
+        "render_multiview", v_pix, vi, vt.expand(views, -1, -1), tex.expand(views, -1, -1, -1), h, w, impl, mark,
+        index_img,
+    )
+    img = torch.cat([rgb * maskf, maskf], dim=1)
+    mark("mask")
+    mark("edge_grad_bwd", img)
+    img = edge_grad_estimator(v_pix=v_pix, vi=vi, bary_img=bary, img=img, index_img=index_img, impl=impl)
+    mark("edge_grad")
+    return img, index_img
+
+
+def inverse8_step(
+    params,
+    optimizer: torch.optim.Optimizer,
+    vi: torch.Tensor,
+    vt: torch.Tensor,
+    cams: dict,
+    img_gt: torch.Tensor,
+    h: int,
+    w: int,
+    device="cuda",
+    impl: str = "auto",
+    stage_times: list | None = None,
+    index_img: torch.Tensor | None = None,
+):
+    """One training step of ``bench.py:bench_inverse8``: render every view
+    (:func:`render_multiview`), take ``mean((img - img_gt)**2)``, run one
+    backward to the world vertices and the texture, and update them with
+    ``optimizer`` (``torch.optim.Adam(params, lr=1e-3)`` is the
+    counterpart of the bench's ``optax.adam(1e-3)``).
+
+    Args:
+        params: ``(v_world [1, V, 3], tex [1, C, Ht, Wt])``, tensors that
+            require gradients; updated in place by ``optimizer``.
+        optimizer: an optimizer over ``params``.
+        vi, vt, cams, h, w, device, impl, index_img: as for
+            :func:`render_multiview`.
+        img_gt: [views, C + 1, H, W] target image.
+        stage_times: as for :func:`render_multiview`, with "loss" after the
+            loss, the backward's marks, "transform_bwd" when the gradients
+            are ready and "adam" after the update: :data:`INVERSE8_STAGES`.
+
+    Returns:
+        (loss, grads): the detached scalar loss before the update, and the
+        gradients ``{"v_world": ..., "tex": ...}`` it applied.
+    """
+    v_world, tex = params
+    if not (v_world.requires_grad and tex.requires_grad):
+        raise ValueError("inverse8_step: v_world and tex must require gradients")
+    img, _ = render_multiview(
+        v_world, vi, vt, tex, cams, h, w, device=device, impl=impl, stage_times=stage_times, index_img=index_img
+    )
+    if img_gt.shape != img.shape:
+        raise ValueError(f"inverse8_step: img_gt has shape {tuple(img_gt.shape)}, expected {tuple(img.shape)}")
+    mark = _marker(stage_times)
+    loss = ((img - img_gt) ** 2).mean()
+    mark("loss")
+    grads = torch.autograd.grad(loss, [v_world, tex])
+    mark("transform_bwd")
+    for p, g in zip((v_world, tex), grads):
+        p.grad = g
+    optimizer.step()
+    mark("adam")
+    return loss.detach(), {"v_world": grads[0], "tex": grads[1]}
 
 
 def stage_ms(stage_times: list) -> dict[str, float]:

@@ -1,9 +1,11 @@
 """The repository's benchmark scenes, built with numpy alone.
 
 Copies of ``bench.make_scene`` (the textured grid mesh behind every
-throughput figure) and ``__graft_entry__._scene`` (a soup of large,
-overlapping random triangles), seeded with ``np.random.RandomState(seed)``
-exactly as there, so the two packages build identical scenes.
+throughput figure), ``__graft_entry__._scene`` (a soup of large,
+overlapping random triangles) and the scene of ``bench.bench_inverse8``
+(a world-space grid seen by a ring of pinhole cameras), seeded with
+``np.random.RandomState(seed)`` and drawn in the same order as there, so
+the two packages build identical scenes.
 """
 
 from __future__ import annotations
@@ -12,7 +14,10 @@ import numpy as np
 
 from drtk_tpu_torch.interop import scene_from_numpy
 
-__all__ = ["entry_scene", "entry_scene_arrays", "make_scene", "make_scene_arrays"]
+__all__ = [
+    "entry_scene", "entry_scene_arrays", "inverse8_scene_arrays", "make_scene", "make_scene_arrays",
+    "with_edge_flags",
+]
 
 
 def make_scene_arrays(h: int, w: int, gn: int, seed: int = 0) -> dict[str, np.ndarray]:
@@ -50,6 +55,54 @@ def entry_scene_arrays(
     vt = rng.uniform(0, 1, size=(batch, num_v, 2)).astype(np.float32)
     tex = rng.rand(batch, 3, 64, 64).astype(np.float32)
     return {"v": v, "vi": vi, "vt": vt, "tex": tex}
+
+
+def inverse8_scene_arrays(
+    h: int = 512, gn: int = 81, views: int = 8, seed: int = 0, tex_size: int = 256
+) -> dict[str, np.ndarray]:
+    """The multi-view inverse-rendering scene of ``bench.bench_inverse8``
+    as numpy arrays: a world-space grid mesh of 2*(gn-1)^2 triangles (12,800
+    at gn=81) at z ~ 4, per-vertex uvs, a ground-truth texture of
+    3 x tex_size x tex_size, and ``views`` pinhole cameras on a small ring,
+    all looking +z and framed to fill an h x h canvas.
+
+    Returns ``v_world`` [1, V, 3], ``vi`` [F, 3] int32, ``vt`` [1, V, 2],
+    ``tex_gt`` [1, 3, tex_size, tex_size], ``campos`` [views, 3],
+    ``camrot`` [views, 3, 3], ``focal`` [views, 2, 2], ``princpt``
+    [views, 2], all float32 but ``vi``."""
+    w = h
+    rng = np.random.RandomState(seed)
+    ys, xs = np.meshgrid(np.linspace(-0.9, 0.9, gn), np.linspace(-0.9, 0.9, gn), indexing="ij")
+    z = 4.0 + 0.3 * rng.randn(gn, gn)
+    v_world = np.stack([xs, ys, z], -1).reshape(1, -1, 3).astype(np.float32)
+    idx = np.arange(gn * gn).reshape(gn, gn)
+    vi = np.concatenate(
+        [
+            np.stack([idx[:-1, :-1], idx[:-1, 1:], idx[1:, :-1]], -1).reshape(-1, 3),
+            np.stack([idx[:-1, 1:], idx[1:, 1:], idx[1:, :-1]], -1).reshape(-1, 3),
+        ]
+    ).astype(np.int32)
+    vt = np.stack([(xs + 1) / 2, (ys + 1) / 2], -1).reshape(1, -1, 2).astype(np.float32)
+    tex_gt = rng.rand(1, 3, tex_size, tex_size).astype(np.float32)
+    th = np.linspace(0, 2 * np.pi, views, endpoint=False)
+    campos = np.stack([0.25 * np.cos(th), 0.25 * np.sin(th), np.zeros(views)], -1).astype(np.float32)
+    camrot = np.tile(np.eye(3, dtype=np.float32), (views, 1, 1))
+    focal = np.tile(np.diag([1.9 * h, 1.9 * h]).astype(np.float32), (views, 1, 1))
+    princpt = np.tile(np.array([w / 2, h / 2], np.float32), (views, 1))
+    return {
+        "v_world": v_world, "vi": vi, "vt": vt, "tex_gt": tex_gt,
+        "campos": campos, "camrot": camrot, "focal": focal, "princpt": princpt,
+    }
+
+
+def with_edge_flags(vi: np.ndarray, flags=0x7) -> np.ndarray:
+    """A copy of int32 ``vi`` with ``flags`` (an int, or one per face) set
+    in the top nibble of ``vi[..., 0]``: bits 28, 29 and 30 mark edges
+    (0, 1), (1, 2) and (0, 2) visible to wireframe rasterization."""
+    vi = np.array(vi, dtype=np.int32)
+    nibble = np.asarray(flags, dtype=np.uint32) << np.uint32(28)
+    vi[..., 0] = (vi[..., 0].astype(np.uint32) | nibble).view(np.int32)
+    return vi
 
 
 def make_scene(h: int, w: int, gn: int, seed: int = 0, device="cuda"):

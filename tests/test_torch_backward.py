@@ -44,6 +44,7 @@ from drtk_tpu_torch.ops.window_accum import window_accumulate  # noqa: E402
 from drtk_tpu_torch.scenes import make_scene_arrays  # noqa: E402
 from tests.test_torch_ops import _soup  # noqa: E402
 from tests.torch_oracle import edge_grad_oracle  # noqa: E402
+from tests.test_torch_kernels import _one_torch_thread  # noqa: E402,F401
 
 
 def _t(a):

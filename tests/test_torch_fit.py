@@ -24,6 +24,7 @@ from drtk_tpu_torch.ops import segment_rows, window_accum  # noqa: E402
 from drtk_tpu_torch.pipeline import FIT_STAGES, fit_step, textured_loss  # noqa: E402
 from drtk_tpu_torch.scenes import make_scene  # noqa: E402
 from tests.utils import grid_mesh  # noqa: E402
+from tests.test_torch_kernels import _one_torch_thread  # noqa: E402,F401
 
 
 def _grad_case_inputs():

@@ -5,18 +5,22 @@ JAX. Tests marked ``cuda`` need an NVIDIA GPU and nvcc and skip elsewhere:
 run them on the card with ``python -m pytest tests/test_torch_kernels.py
 -m cuda -q``. The unmarked tests hold, on the CPU, what surrounds the
 kernels: the dispatch, the launch counts and the setup packing, the latter
-against a numpy emulation of kernel B1's algorithm.
+against numpy emulations of kernel B1's and kernel B5's algorithms (B5's
+down to its thread-to-(triangle, pixel) mapping), full frame and row tiles.
 
 Tolerances: kernel B2 copies table rows, so it must be bit-exact
-(torch.equal). Kernel B1 rounds every product and sum on its own in the
-plain version's order, so it should match the plain version exactly; the
-assertion still allows the rasterizer's documented tie rule (index flips
+(torch.equal). Kernels B1 and B5 round every product, sum and quotient on
+its own in the plain version's order, so they should match the plain
+version exactly, and a row tile the full frame's rows (asserted exactly);
+the assertion against the plain version still allows the rasterizer's
+documented tie rule (index flips
 only at pixels whose two depths agree to 1e-4 relative, fewer than 1e-3 of
 the pixels; depth to rtol 1e-4 / atol 1e-6). Kernels B3 and B4 add with
 atomics in an order that changes from run to run: rtol 1e-5 and an atol of
 1e-6 times the sum of the magnitudes that went into each output (in f64,
 1e-12). The fitting step's gradients through the kernels agree with the
-plain pipeline's to 1e-4 of the largest magnitude, its loss to 1e-5.
+plain pipeline's to 1e-4 of the largest magnitude, its loss to 1e-5; so
+do the inverse8 step's, to the world vertices and the texture.
 """
 
 import numpy as np
@@ -25,9 +29,29 @@ import torch
 
 import drtk_tpu_torch as tt
 from drtk_tpu_torch.ops import rasterize_cuda, segment_rows, window_accum
-from drtk_tpu_torch.ops.rasterize import _canvas_cull, _rasterize_plain, broadcast_vi, triangle_setup
-from drtk_tpu_torch.pipeline import fit_step, render_textured
-from drtk_tpu_torch.scenes import entry_scene_arrays, make_scene_arrays
+from drtk_tpu_torch.ops.rasterize import (
+    _canvas_cull,
+    _rasterize_lines_plain,
+    _rasterize_plain,
+    broadcast_vi,
+    line_setup,
+    triangle_setup,
+)
+from drtk_tpu_torch.pipeline import fit_step, inverse8_step, render_textured
+from drtk_tpu_torch.scenes import entry_scene_arrays, inverse8_scene_arrays, make_scene_arrays, with_edge_flags
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch intra-op thread per test: the suite runs test files in
+    parallel worker processes, and each worker's default of one OpenMP
+    thread per core oversubscribes the machine many times over. The other
+    tests/test_torch_*.py files import it from here, a module that needs no
+    JAX."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture
@@ -38,6 +62,7 @@ def cuda_device():
 
 
 def _soup(n, num_v, num_f, h, w, seed):
+    """Random triangle soup covering (and overhanging) the canvas."""
     rng = np.random.RandomState(seed)
     xy = rng.uniform(-0.2, 1.2, (n, num_v, 2)).astype(np.float32) * np.float32([w, h])
     z = rng.uniform(3.0, 9.0, (n, num_v, 1)).astype(np.float32)
@@ -51,6 +76,18 @@ SCENES = {
     "grid": (lambda: make_scene_arrays(128, 256, 9), 128, 256),
     "entry": (lambda: entry_scene_arrays(h=128, w=128), 128, 128),
 }
+NO_LAUNCHES = {
+    "B1 rasterize": 0, "B2 gather_rows": 0, "B3 scatter_rows": 0, "B4 window_accum": 0, "B5 rasterize_lines": 0,
+}
+
+
+def _wire(scene):
+    """A scene of SCENES with every edge visible, and per-face partial flags
+    on the soups."""
+    make, h, w = SCENES[scene]
+    s = make()
+    flags = np.arange(s["vi"].shape[0]) % 7 + 1 if scene.startswith("soup") else 0x7
+    return {**s, "vi": with_edge_flags(s["vi"], flags)}, h, w
 
 
 def _assert_raster_match(d_ref, i_ref, d, i):
@@ -74,9 +111,8 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     v, vi = torch.from_numpy(s["v"]), torch.from_numpy(s["vi"])
     index_img = tt.rasterize(v, vi, 64, 128)
     tt.render(v, vi, index_img)
-    assert tt.kernel_launch_counts() == {
-        "B1 rasterize": 0, "B2 gather_rows": 0, "B3 scatter_rows": 0, "B4 window_accum": 0,
-    }
+    tt.rasterize(v, torch.from_numpy(with_edge_flags(s["vi"])), 64, 128, wireframe=True, y_offset=8, full_height=80)
+    assert tt.kernel_launch_counts() == NO_LAUNCHES
 
 
 def test_unknown_impl_raises():
@@ -84,8 +120,9 @@ def test_unknown_impl_raises():
     idx = torch.zeros((1, 2, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="impl"):
         segment_rows.gather_rows_by_index(table, idx, impl="fast")
-    with pytest.raises(ValueError, match="impl"):
-        tt.rasterize(torch.zeros((1, 3, 3)), torch.zeros((1, 3), dtype=torch.int32), 4, 4, impl="fast")
+    for wireframe in (False, True):
+        with pytest.raises(ValueError, match="impl"):
+            tt.rasterize(torch.zeros((1, 3, 3)), torch.zeros((1, 3), dtype=torch.int32), 4, 4, wireframe, "fast")
     with pytest.raises(ValueError, match="impl"):
         segment_rows.scatter_rows_to_faces(torch.zeros((1, 2, 2, 3)), idx, 4, impl="fast")
     with pytest.raises(ValueError, match="impl"):
@@ -102,7 +139,7 @@ def test_accumulation_shape_validation():
         window_accum.window_accumulate(torch.zeros((1, 3, 4)), idx.reshape(1, 4), idx.reshape(1, 4), -1, 2)
 
 
-def _emulate_b1(coef, meta, h, w):
+def _emulate_b1(coef, meta, h, w, y_offset=0):
     """numpy emulation of csrc/rasterize.cu: per triangle, walk its packed
     pixel range, round each product and sum on its own in float32, and keep
     the smallest packed key (~float_bits(di) << 32) | id."""
@@ -123,7 +160,7 @@ def _emulate_b1(coef, meta, h, w):
             di = (e[0] * c[9] + e[1] * c[10]) + e[2] * c[11]
             bits = di.astype(np.float32).view(np.uint32) & np.uint32(0x7FFFFFFF)
             key = ((~bits).astype(np.uint64) << np.uint64(32)) | np.uint64(t)
-            win = keys[b, y_lo : y_hi + 1, x_lo : x_hi + 1]
+            win = keys[b, y_lo - y_offset : y_hi - y_offset + 1, x_lo : x_hi + 1]
             win[keep] = np.minimum(win[keep], key[keep])
     ids = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     covered = ids != np.uint32(0xFFFFFFFF)
@@ -132,20 +169,113 @@ def _emulate_b1(coef, meta, h, w):
     return depth, np.where(covered, ids.astype(np.int32), -1)
 
 
+# (y_offset, rows): the full frame, and row tiles of it
+VIEWPORTS = [(0, None), (16, 24), (40, 24)]
+
+
+@pytest.mark.parametrize("viewport", VIEWPORTS)
 @pytest.mark.parametrize("scene", ["soup_batch3", "nonaligned", "grid", "entry"])
-def test_packed_setup_reproduces_plain_resolve(scene):
+def test_packed_setup_reproduces_plain_resolve(scene, viewport):
     """What kernel B1 computes from pack_setup's rows (emulated in numpy)
-    equals the plain resolve bit for bit."""
+    equals the plain resolve bit for bit, in a row tile too."""
     make, h, w = SCENES[scene]
+    y0, hb = viewport
+    hb = hb or h
     s = make()
     v = torch.from_numpy(s["v"])
     vi = broadcast_vi(torch.from_numpy(s["vi"]), v.shape[0])
     setup = triangle_setup(v, vi)
     valid = _canvas_cull(setup, h, w)
-    coef, meta = rasterize_cuda.pack_setup(setup, valid, h, w)
+    coef, meta = rasterize_cuda.pack_setup(setup, valid, hb, w, y0)
     assert coef.shape[-1] == rasterize_cuda.SETUP_FLOATS and meta.shape[-1] == rasterize_cuda.SETUP_INTS
-    depth, index = _emulate_b1(coef.numpy(), meta.numpy(), h, w)
-    d_ref, i_ref = _rasterize_plain(setup, valid, h, w)
+    depth, index = _emulate_b1(coef.numpy(), meta.numpy(), hb, w, y0)
+    d_ref, i_ref = _rasterize_plain(setup, valid, hb, w, y_offset=y0)
+    np.testing.assert_array_equal(index, i_ref.numpy())
+    np.testing.assert_array_equal(depth, d_ref.numpy())
+    if viewport[1] is not None:
+        d_full, i_full = _rasterize_plain(setup, valid, h, w)
+        np.testing.assert_array_equal(i_ref.numpy(), i_full[:, y0 : y0 + hb].numpy())
+
+
+def _emulate_b5(rows, meta, ends, h, w, y_offset=0):
+    """numpy emulation of csrc/rasterize_lines.cu: thread t takes the first
+    triangle whose running window-area sum exceeds t and the pixel
+    t - (the sum before it) of its window, row-major; every product, sum and
+    quotient is rounded on its own in float32; the smallest packed key
+    (~float_bits(di) << 32) | id wins, id INT32_MAX where no edge crosses."""
+    n, f_cnt, _ = rows.shape
+    f32 = np.float32
+    t = np.arange(int(ends[-1]) if ends.size else 0, dtype=np.int64)
+    i = np.searchsorted(ends, t, side="right")
+    off = t - np.concatenate([[0], ends])[i]
+    r, m = rows.reshape(-1, rows.shape[-1])[i], meta.reshape(-1, meta.shape[-1])[i].astype(np.int64)
+    cols = m[:, 2] - m[:, 1] + 1
+    y, x = m[:, 3] + off // cols, m[:, 1] + off % cols
+    px, py = x.astype(f32), y.astype(f32)
+    e = [(r[:, k] * px + r[:, 3 + k] * py) + r[:, 6 + k] for k in range(3)]
+    inside = np.ones(t.shape, bool)
+    for k in range(3):
+        inside &= (e[k] > 0) | ((e[k] == 0) & (m[:, 0] >> k & 1 == 1))
+
+    def diamond(p1x, p1y, p2x, p2y):
+        a0, b0, c0 = p1y - p2y, p2x - p1x, p1x * p2y - p2x * p1y
+
+        def in_seg(ax, ay, bx, by, cx, cy):
+            return (((bx >= cx) & (cx >= ax)) | ((bx <= cx) & (cx <= ax))) & (
+                ((by >= cy) & (cy >= ay)) | ((by <= cy) & (cy <= ay)))
+
+        def side(s0x, s0y, s1x, s1y):
+            a2, b2, c2 = s0y - s1y, s1x - s0x, s0x * s1y - s1x * s0y
+            d = a0 * b2 - a2 * b0
+            with np.errstate(divide="ignore", invalid="ignore"):
+                cx = np.where(d == 0, np.finfo(f32).max, (b0 * c2 - b2 * c0) / d).astype(f32)
+                cy = np.where(d == 0, np.finfo(f32).max, (a2 * c0 - a0 * c2) / d).astype(f32)
+            return in_seg(s0x, s0y, s1x, s1y, cx, cy) & in_seg(p1x, p1y, p2x, p2y, cx, cy)
+
+        h_ = f32(0.5)
+        return (side(px, py - h_, px + h_, py) | side(px + h_, py, px, py + h_)
+                | side(px, py + h_, px - h_, py) | side(px - h_, py, px, py - h_))
+
+    cross = np.zeros(t.shape, bool)
+    for bit, (a, b) in ((3, (9, 11)), (4, (11, 13)), (5, (9, 13))):
+        cross |= (m[:, 0] >> bit & 1 == 1) & diamond(r[:, a], r[:, a + 1], r[:, b], r[:, b + 1])
+    b = [np.minimum(np.maximum(ek * r[:, 18], f32(0)), f32(1)) for ek in e]
+    bs = (b[0] + b[1]) + b[2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        di = ((b[0] / bs) * r[:, 15] + (b[1] / bs) * r[:, 16]) + (b[2] / bs) * r[:, 17]
+    write = inside | cross
+    bits = di.astype(f32).view(np.uint32) & np.uint32(0x7FFFFFFF)
+    ids = np.where(cross, i % f_cnt, 0x7FFFFFFF).astype(np.uint64)
+    key = ((~bits).astype(np.uint64) << np.uint64(32)) | ids
+    keys = np.full(n * h * w, np.iinfo(np.uint64).max, np.uint64)
+    flat = ((i // f_cnt) * h + (y - y_offset)) * w + x
+    np.minimum.at(keys, flat[write], key[write])
+    keys = keys.reshape(n, h, w)
+    written = keys != np.iinfo(np.uint64).max
+    ids = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    di = (~(keys >> np.uint64(32)).astype(np.uint32)).view(np.float32)
+    depth = np.where(written, f32(1) / np.maximum(di, f32(1e-8)), f32(0))
+    return depth, np.where(written & (ids != 0x7FFFFFFF), ids.astype(np.int32), -1)
+
+
+@pytest.mark.parametrize("viewport", VIEWPORTS)
+@pytest.mark.parametrize("scene", ["soup_batch3", "nonaligned", "grid", "entry"])
+def test_packed_lines_reproduce_plain_resolve(scene, viewport):
+    """What kernel B5 computes from pack_lines' rows (emulated in numpy)
+    equals the plain wireframe resolve bit for bit, in a row tile too."""
+    s, h, w = _wire(scene)
+    y0, hb = viewport
+    hb = hb or h
+    v = torch.from_numpy(s["v"])
+    vi = broadcast_vi(torch.from_numpy(s["vi"]), v.shape[0])
+    setup, lines = triangle_setup(v, vi), line_setup(v, vi)
+    valid = _canvas_cull(setup, h, w)
+    rows, meta, ends = rasterize_cuda.pack_lines(setup, lines, valid, hb, w, y0, h)
+    assert rows.shape[-1] == rasterize_cuda.LINE_FLOATS and meta.shape[-1] == rasterize_cuda.LINE_INTS
+    assert ends.dtype == torch.int64 and ends.shape == (v.shape[0] * vi.shape[1],)
+    depth, index = _emulate_b5(rows.numpy(), meta.numpy(), ends.numpy(), hb, w, y0)
+    d_ref, i_ref = _rasterize_lines_plain(setup, lines, valid, hb, w, y0, h)
+    assert (i_ref >= 0).any() and ((i_ref < 0) & (d_ref > 0)).any()
     np.testing.assert_array_equal(index, i_ref.numpy())
     np.testing.assert_array_equal(depth, d_ref.numpy())
 
@@ -195,9 +325,7 @@ def test_render_textured_kernels_match_plain(cuda_device):
     tt.reset_kernel_launch_counts()
     img, idx = render_textured(v, vi, vt, tex, 128, 256)
     torch.cuda.synchronize()
-    assert tt.kernel_launch_counts() == {
-        "B1 rasterize": 1, "B2 gather_rows": 2, "B3 scatter_rows": 0, "B4 window_accum": 0,
-    }
+    assert tt.kernel_launch_counts() == {**NO_LAUNCHES, "B1 rasterize": 1, "B2 gather_rows": 2}
     img_p, idx_p = render_textured(v, vi, vt, tex, 128, 256, impl="plain")
     same = (idx == idx_p)[:, None].expand_as(img)
     assert same.float().mean() > 0.999
@@ -258,7 +386,7 @@ def test_fit_step_kernels_match_plain(cuda_device):
     loss, grads = fit_step(v, vi, vt, tex, 128, 256)
     torch.cuda.synchronize()
     assert tt.kernel_launch_counts() == {
-        "B1 rasterize": 1, "B2 gather_rows": 5, "B3 scatter_rows": 3, "B4 window_accum": 1,
+        **NO_LAUNCHES, "B1 rasterize": 1, "B2 gather_rows": 5, "B3 scatter_rows": 3, "B4 window_accum": 1,
     }
     idx = tt.rasterize(v, vi, 128, 256)
     loss, grads = fit_step(v, vi, vt, tex, 128, 256, index_img=idx)
@@ -266,5 +394,65 @@ def test_fit_step_kernels_match_plain(cuda_device):
     torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0)
     for name in ("v", "vt", "tex"):
         assert bool(torch.isfinite(grads[name]).all())
+        err = (grads[name] - grads_p[name]).abs().max()
+        assert err <= 1e-4 * grads_p[name].abs().max(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["soup_batch3", "nonaligned", "grid", "entry"])
+def test_lines_kernel_matches_plain(cuda_device, scene):
+    s, h, w = _wire(scene)
+    v = torch.from_numpy(s["v"]).to(cuda_device)
+    vi = torch.from_numpy(s["vi"]).to(cuda_device)
+    before = rasterize_cuda.lines_launches
+    d, i = tt.rasterize_with_depth(v, vi, h, w, wireframe=True)
+    torch.cuda.synchronize()
+    assert rasterize_cuda.lines_launches == before + 1
+    d_ref, i_ref = tt.rasterize_with_depth(v, vi, h, w, wireframe=True, impl="plain")
+    assert bool((i >= 0).any())
+    _assert_raster_match(d_ref, i_ref, d, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wireframe", [False, True])
+def test_viewport_tiles_on_the_card(cuda_device, wireframe):
+    """Row tiles from kernel B1 (B5) equal the full frame's rows exactly,
+    and each tile matches its plain version."""
+    s, h, w = _wire("grid")
+    v = torch.from_numpy(s["v"]).to(cuda_device)
+    vi = torch.from_numpy(s["vi"]).to(cuda_device)
+    d_full, i_full = tt.rasterize_with_depth(v, vi, h, w, wireframe=wireframe)
+    for y0, hb in [(0, 32), (32, 32), (64, 32), (96, 32), (10, 77)]:
+        kw = dict(wireframe=wireframe, y_offset=y0, full_height=h)
+        d_t, i_t = tt.rasterize_with_depth(v, vi, hb, w, **kw)
+        assert torch.equal(i_t, i_full[:, y0 : y0 + hb]) and torch.equal(d_t, d_full[:, y0 : y0 + hb])
+        _assert_raster_match(*tt.rasterize_with_depth(v, vi, hb, w, impl="plain", **kw), d_t, i_t)
+
+
+@pytest.mark.cuda
+def test_inverse8_step_kernels_match_plain(cuda_device):
+    s = {k: torch.from_numpy(a).to(cuda_device) for k, a in inverse8_scene_arrays(64, 9, 2, tex_size=32).items()}
+    cams = {k: s[k] for k in ("campos", "camrot", "focal", "princpt")}
+    with torch.no_grad():
+        img_gt, _ = tt.render_multiview(s["v_world"], s["vi"], s["vt"], s["tex_gt"], cams, 64, 64)
+
+    def params():
+        return (s["v_world"] + 0.02).requires_grad_(), torch.full_like(s["tex_gt"], 0.5).requires_grad_()
+
+    p = params()
+    tt.reset_kernel_launch_counts()
+    inverse8_step(p, torch.optim.Adam(p, lr=1e-3), s["vi"], s["vt"], cams, img_gt, 64, 64)
+    torch.cuda.synchronize()
+    assert tt.kernel_launch_counts() == {
+        **NO_LAUNCHES, "B1 rasterize": 1, "B2 gather_rows": 5, "B3 scatter_rows": 2, "B4 window_accum": 1,
+    }
+    p_k, p_p = params(), params()
+    idx = tt.rasterize(tt.transform(p_k[0].detach().expand(2, -1, -1), **cams), s["vi"], 64, 64)
+    loss, grads = inverse8_step(p_k, torch.optim.Adam(p_k, lr=1e-3), s["vi"], s["vt"], cams, img_gt, 64, 64,
+                                index_img=idx)
+    loss_p, grads_p = inverse8_step(p_p, torch.optim.Adam(p_p, lr=1e-3), s["vi"], s["vt"], cams, img_gt, 64, 64,
+                                    index_img=idx, impl="plain")
+    torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0)
+    for name in ("v_world", "tex"):
         err = (grads[name] - grads_p[name]).abs().max()
         assert err <= 1e-4 * grads_p[name].abs().max(), name

@@ -38,15 +38,7 @@ from drtk_tpu_torch.ops.grid_sample import grid_sample  # noqa: E402
 from drtk_tpu_torch.ops.segment_rows import gather_rows_by_index  # noqa: E402
 from drtk_tpu_torch.scenes import entry_scene_arrays, make_scene_arrays  # noqa: E402
 from tests.utils import grid_mesh, two_triangles_scene  # noqa: E402
-
-
-def _soup(n, num_v, num_f, h, w, seed):
-    """Random triangle soup covering (and overhanging) the canvas."""
-    rng = np.random.RandomState(seed)
-    xy = rng.uniform(-0.2, 1.2, (n, num_v, 2)).astype(np.float32) * np.float32([w, h])
-    z = rng.uniform(3.0, 9.0, (n, num_v, 1)).astype(np.float32)
-    vi = rng.randint(0, num_v, (num_f, 3)).astype(np.int32)
-    return {"v": np.concatenate([xy, z], -1), "vi": vi}
+from tests.test_torch_kernels import _one_torch_thread, _soup  # noqa: E402,F401
 
 
 def _two_triangles():
@@ -348,9 +340,10 @@ def _raster_args():
         ("bad_v_shape", ValueError),
         ("zero_height", ValueError),
         ("batch_mismatch", ValueError),
-        ("wireframe", NotImplementedError),
-        ("y_offset", NotImplementedError),
-        ("full_height", NotImplementedError),
+        ("wireframe", ValueError),
+        ("y_offset", ValueError),
+        ("full_height", ValueError),
+        ("distortion_mode", NotImplementedError),
     ],
 )
 def test_rasterize_validation(case, exc):
@@ -365,9 +358,19 @@ def test_rasterize_validation(case, exc):
         h = 0
     elif case == "batch_mismatch":
         vi = vi[None].expand(2, -1, -1).contiguous()
-    else:
-        kwargs = {"wireframe": {"wireframe": True}, "y_offset": {"y_offset": 4},
-                  "full_height": {"full_height": 32}}[case]
+    elif case == "wireframe":  # wireframe=True validates like the filled mode
+        vi = vi.long()
+        kwargs = {"wireframe": True}
+    elif case == "y_offset":  # rows [4, 20) of a 16-row frame
+        kwargs = {"y_offset": 4}
+    elif case == "full_height":
+        kwargs = {"y_offset": 4, "full_height": 19}
+    else:  # the transform in front of the rasterizer: only pinhole is ported
+        cam = dict(campos=torch.zeros(1, 3), camrot=torch.eye(3)[None], focal=torch.eye(2)[None],
+                   princpt=torch.zeros(1, 2))
+        with pytest.raises(exc, match="item 15"):
+            tt.transform(v, **cam, distortion_mode="fisheye", distortion_coeff=torch.zeros(1, 4))
+        return
     with pytest.raises(exc):
         tt.rasterize(v, vi, h, 16, **kwargs)
 

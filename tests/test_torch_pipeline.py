@@ -28,6 +28,7 @@ import drtk_tpu_torch as tt  # noqa: E402
 from drtk_tpu_torch.interop import scene_from_numpy, to_numpy  # noqa: E402
 from drtk_tpu_torch.pipeline import STAGES, render_textured  # noqa: E402
 from drtk_tpu_torch.scenes import entry_scene, entry_scene_arrays, make_scene, make_scene_arrays  # noqa: E402
+from tests.test_torch_kernels import _one_torch_thread  # noqa: E402,F401
 
 # name -> (numpy scene, height, width)
 CASES = {
