@@ -18,10 +18,16 @@ checked just after:
   with a silhouette, gradients to the world vertices and the texture, an
   Adam update).
 
-Triangle rasterization (B1) is held against its plain version on the
-entry and textured scenes and on the views of the inverse8 step, wireframe
-rasterization (B5) on the entry, textured and inverse8 scenes, and
-row-tile viewports of B1 and B5 against the full frame. Times come from CUDA events. Every earlier line of
+The face-row gather (B2) is held against its plain version on the index
+images of the textured scene and of the inverse8 step's 8 views; triangle
+rasterization (B1), bit for bit, on the entry and textured scenes and on
+the views of the inverse8 step; wireframe rasterization (B5) on the entry,
+textured and inverse8 scenes; and row-tile viewports of B1 and B5 against
+the full frame. Times come from CUDA events: a kernel's ``ms`` (and
+``plain_ms``, ``library_ms``) from back-to-back calls, which count the
+host's time per call when it is the longer; ``device_ms`` (and
+``library_device_ms``) from replays of a CUDA graph of 20 calls, the time
+on the device alone. Every earlier line of
 output is a JSON object (or the raw nvidia-smi line); the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 then exits non-zero without that line. It exits non-zero at once when CUDA
@@ -89,6 +95,33 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Mean milliseconds per call of ``fn`` on the device alone: ``reps``
+    calls captured in one CUDA graph, ``replays`` replays timed with CUDA
+    events. The host's time to prepare and launch each call, which
+    ``cuda_ms`` counts when it exceeds the device's, is left out; the gaps
+    between a call's own launches are not."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up on a side stream, as capture requires
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
 
 
 def device_profile(step, n_steps: int) -> dict | None:
@@ -189,33 +222,41 @@ def main() -> int:
     vib = rast.broadcast_vi(vi, v.shape[0])
     index_img = tt.rasterize(v, vi, H, W)
 
-    # 3. B2 vs plain on the textured scene's index image
+    # 3. B2 vs plain on the textured scene's index image (and, after phase
+    # 13, on the inverse8 step's)
+    def b2_vs_plain(image, tables, idx) -> dict:
+        n = idx.shape[0]
+        recs = {}
+        for k_dim, table in tables.items():
+            got = segment_rows.gather_rows_by_index(table, idx)
+            want = segment_rows._gather_rows_plain(table, idx)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"B2 {image} K={k_dim}: kernel differs from the plain gather")
+            f_cnt = table.shape[1]
+            padded = torch.cat([table.new_zeros((1, k_dim)), table.reshape(-1, k_dim)])  # row 0 = background
+            offs = torch.arange(n, device=dev)[:, None, None] * f_cnt + 1
+            lib_idx = torch.where(idx >= 0, idx.long() + offs, 0)
+            if not torch.equal(torch.nn.functional.embedding(lib_idx, padded), got):
+                raise AssertionError(f"B2 {image} K={k_dim}: the library yardstick computes another function")
+            nbytes = table.numel() * 4 + idx.numel() * 4 + got.numel() * 4
+            recs[k_dim] = {
+                "ms": cuda_ms(lambda: segment_rows._gather_rows_cuda(table, idx), 50),
+                "device_ms": graph_ms(lambda: segment_rows._gather_rows_cuda(table, idx)),
+                "plain_ms": cuda_ms(lambda: segment_rows._gather_rows_plain(table, idx), 20),
+                "library_ms": cuda_ms(lambda: torch.nn.functional.embedding(lib_idx, padded), 50),
+                "library_device_ms": graph_ms(lambda: torch.nn.functional.embedding(lib_idx, padded)),
+                "bytes": nbytes, "bound_ms": nbytes / bw * 1e3, "max_abs_err": 0.0,
+            }
+            emit({"phase": "B2 vs plain", "image": image, "batch": n, "faces": f_cnt, "K": k_dim,
+                  "bit_exact": True, **recs[k_dim]})
+        return recs
+
     rng = np.random.RandomState(0)
-    tables = {
-        9: _face_table(v, vib),  # render's per-face vertex rows
-        6: _face_table(vt, vib),  # interpolate's per-face uv rows
-        16: torch.from_numpy(rng.randn(1, n_faces, 16).astype(np.float32)).to(dev),  # edge_grad's width
-    }
-    b2 = {}
-    for k_dim, table in tables.items():
-        got = segment_rows.gather_rows_by_index(table, index_img)
-        want = segment_rows._gather_rows_plain(table, index_img)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"B2 K={k_dim}: kernel differs from the plain gather")
-        padded = torch.cat([table.new_zeros((1, k_dim)), table[0]])  # row 0 = background
-        lib_idx = index_img.long() + 1
-        lib_out = torch.nn.functional.embedding(lib_idx, padded)
-        if not torch.equal(lib_out[0], got[0]):
-            raise AssertionError(f"B2 K={k_dim}: the library yardstick computes another function")
-        nbytes = table.numel() * 4 + index_img.numel() * 4 + got.numel() * 4
-        b2[k_dim] = {
-            "ms": cuda_ms(lambda: segment_rows._gather_rows_cuda(table, index_img), 50),
-            "plain_ms": cuda_ms(lambda: segment_rows._gather_rows_plain(table, index_img), 20),
-            "library_ms": cuda_ms(lambda: torch.nn.functional.embedding(lib_idx, padded), 50),
-            "bytes": nbytes, "bound_ms": nbytes / bw * 1e3, "max_abs_err": 0.0,
-        }
-        emit({"phase": "B2 vs plain", "K": k_dim, "bit_exact": True, **b2[k_dim]})
+    tables = {9: _face_table(v, vib), 6: _face_table(vt, vib)}  # render's vertex rows, interpolate's uv rows
+    b2 = b2_vs_plain("textured", {
+        **tables, 16: torch.from_numpy(rng.randn(1, n_faces, 16).astype(np.float32)).to(dev),  # edge_grad's width
+    }, index_img)
 
     # 4. B1 vs plain on the entry scene and the textured scene (and, in
     # phase 13, on the inverse8 step's views)
@@ -224,10 +265,12 @@ def main() -> int:
         setup = rast.triangle_setup(sv, svib)
         valid = rast._canvas_cull(setup, hh, ww)
         coef, meta = rasterize_cuda.pack_setup(setup, valid, hh, ww)
-        d, i = rasterize_cuda.resolve_packed(coef, meta, hh, ww)
+        d, i, bins = rasterize_cuda._resolve_binned(coef, meta, hh, ww)
         d_ref, i_ref = rast._rasterize_plain(setup, valid, hh, ww)
         torch.cuda.synchronize()
         rec = check_raster(f"B1 {scene}", d_ref, i_ref, d, i)
+        if not (torch.equal(d, d_ref) and torch.equal(i, i_ref)):
+            raise AssertionError(f"B1 {scene}: kernel not bit-identical to the plain resolve")
         m = meta.long()
         tests = ((m[..., 2] - m[..., 1] + 1).clamp(min=0) * (m[..., 4] - m[..., 3] + 1).clamp(min=0)).sum().item()
         nbytes = coef.numel() * 4 + meta.numel() * 4 + d.numel() * 4 + i.numel() * 4
@@ -235,9 +278,12 @@ def main() -> int:
         bound_ops_ms = tests * FLOPS_PER_TEST / f32_flops * 1e3
         ms_runs = [cuda_ms(lambda: rasterize_cuda.resolve_packed(coef, meta, hh, ww), 20) for _ in range(3)]
         rec.update({
-            "H": hh, "W": ww, "batch": int(sv.shape[0]), "faces": int(svib.shape[1]),
-            "bit_exact": bool(torch.equal(d, d_ref) and torch.equal(i, i_ref)),
+            "H": hh, "W": ww, "batch": int(sv.shape[0]), "faces": int(svib.shape[1]), "bit_exact": True,
+            "pairs": int(bins.starts[-1]), "pair_capacity": bins.pairs.numel(),
+            "big_list": int(bins.big_count.sum()),
+            "bins_bytes": 4 * sum(rasterize_cuda._bin_sizes(*coef.shape[:2], hh, ww)),
             "ms": statistics.median(ms_runs), "ms_runs": ms_runs,
+            "device_ms": graph_ms(lambda: rasterize_cuda.resolve_packed(coef, meta, hh, ww)),
             "plain_ms": cuda_ms(lambda: rast._rasterize_plain(setup, valid, hh, ww), 2, warmup=1),
             "rasterize_call_ms": cuda_ms(lambda: tt.rasterize_with_depth(sv, svi, hh, ww), 20),
             "pixel_centres_tested": tests, "bytes": nbytes,
@@ -336,8 +382,10 @@ def main() -> int:
         nbytes = n_fg * k_dim * 4 + index_img.numel() * 4 + n_faces * k_dim * 4
         b3[k_dim] = {
             "ms": cuda_ms(lambda: segment_rows._scatter_rows_cuda(rows, index_img, n_faces), 50),
+            "device_ms": graph_ms(lambda: segment_rows._scatter_rows_cuda(rows, index_img, n_faces)),
             "plain_ms": cuda_ms(lambda: segment_rows._scatter_rows_plain(rows, index_img, n_faces), 20),
-            "library_ms": cuda_ms(library, 50), "library": "index_add_ of the foreground rows (the plain "
+            "library_ms": cuda_ms(library, 50), "library_device_ms": graph_ms(library),
+            "library": "index_add_ of the foreground rows (the plain "
             "version's core, without its masking)", "foreground_pixels": n_fg,
             "bytes": nbytes, "bound_ms": nbytes / bw * 1e3, "max_abs_err": err.max().item(),
         }
@@ -375,8 +423,10 @@ def main() -> int:
     b4 = {
         "K": k4, "taps": iy.numel(), "live_taps": n_fg, "table": [t_h, t_w],
         "ms": cuda_ms(lambda: window_accum._window_accumulate_cuda(rows_kp, iy, ix, t_h, t_w), 50),
+        "device_ms": graph_ms(lambda: window_accum._window_accumulate_cuda(rows_kp, iy, ix, t_h, t_w)),
         "plain_ms": cuda_ms(lambda: window_accum._window_accumulate_plain(rows_kp, iy, ix, t_h, t_w), 20),
-        "library_ms": cuda_ms(library_b4, 50), "library": "index_add_ of the live taps' rows (the plain "
+        "library_ms": cuda_ms(library_b4, 50), "library_device_ms": graph_ms(library_b4),
+        "library": "index_add_ of the live taps' rows (the plain "
         "version's core, without its masking)",
         "bytes": nbytes, "bound_ms": nbytes / bw * 1e3, "max_abs_err": err.max().item(),
     }
@@ -486,6 +536,7 @@ def main() -> int:
             "bit_exact": bool(torch.equal(d, d_ref) and torch.equal(i, i_ref)),
             "indexed_pixels": int((i >= 0).sum()), "depth_only_pixels": int(((i < 0) & (d > 0)).sum()),
             "ms": statistics.median(ms_runs), "ms_runs": ms_runs,
+            "device_ms": graph_ms(lambda: rasterize_cuda.resolve_lines_packed(rows, meta, ends, hh, ww)),
             "plain_ms": cuda_ms(lambda: rast._rasterize_lines_plain(setup, lines, valid, hh, ww, 0, hh), 2, warmup=1),
             "rasterize_call_ms": cuda_ms(lambda: tt.rasterize_with_depth(sv, svi, hh, ww, wireframe=True), 20),
             "pixel_tests": tests, "flops": flops, "bytes": nbytes,
@@ -508,8 +559,11 @@ def main() -> int:
             torch.cuda.synchronize()
             if not (torch.equal(i_t, i_full[:, y0 : y0 + H // 4]) and torch.equal(d_t, d_full[:, y0 : y0 + H // 4])):
                 raise AssertionError(f"viewport {mode} y_offset={y0}: the tile differs from the full frame's rows")
+            exact = bool(torch.equal(d_t, d_p) and torch.equal(i_t, i_p))
+            if mode == "B1" and not exact:
+                raise AssertionError(f"viewport B1 y_offset={y0}: the tile is not bit-identical to the plain one")
             tiles.append({"y_offset": y0, **check_raster(f"viewport {mode} {y0} vs plain", d_p, i_p, d_t, i_t),
-                          "bit_exact_vs_plain": bool(torch.equal(d_t, d_p) and torch.equal(i_t, i_p))})
+                          "bit_exact_vs_plain": exact})
         viewport[mode] = tiles
     emit({"phase": "viewport", "scene": "textured", "rows": H // 4, "tiles_equal_full_frame": True, **viewport})
 
@@ -610,12 +664,23 @@ def main() -> int:
         "loss_rel_err_vs_plain": loss_err, "grad_rel_err_vs_plain": inv_grad_err, "profile": profile,
     })
 
+    # 13b. B2 vs plain on the inverse8 step's index image: 8 views of 512^2,
+    # tables of 12,800 rows per view, the batch on blockIdx.y.
+    inv_vib = rast.broadcast_vi(inv["vi"], INV_VIEWS)
+    b2_inv = b2_vs_plain("inverse8", {
+        9: _face_table(inv_v_pix, inv_vib),
+        6: _face_table(inv["vt"].expand(INV_VIEWS, -1, -1), inv_vib),
+        16: torch.from_numpy(rng.randn(INV_VIEWS, inv_vib.shape[1], 16).astype(np.float32)).to(dev),
+    }, idx_k)
+
     # 14. The kernels, with the numbers of this run; times per fitting step
     # (B2: K=9 and K=6 in the forward, again in the backward, and K=16 in
     # edge_grad's backward; B3: K=9 in render's and edge_grad's backward,
     # K=6 in interpolate's).
-    def b2_step(key):
-        return 2 * b2[9][key] + 2 * b2[6][key] + b2[16][key]
+    b2_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "library_device_ms")
+
+    def b2_step(key, recs=b2):
+        return 2 * recs[9][key] + 2 * recs[6][key] + recs[16][key]
 
     def b3_step(key):
         return 2 * b3[9][key] + b3[6][key]
@@ -630,30 +695,37 @@ def main() -> int:
          "source": "drtk_tpu_torch/csrc/rasterize.cu", "replaces": "drtk_tpu/ops/rasterize_pallas.py:257",
          "launches": main_launches["B1 rasterize"], "launches_per_step": 1,
          "max_abs_err": b1["textured"]["max_abs_depth_err"],
-         "ms": b1["textured"]["ms"], "plain_ms": b1["textured"]["plain_ms"],
-         "bound_ms": b1["textured"]["bound_ms"], "bound_by": b1["textured"]["bound_by"], "library_ms": None,
-         "by_scene": {sc: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bit_exact")} for sc, r in b1.items()}},
+         "ms": b1["textured"]["ms"], "device_ms": b1["textured"]["device_ms"],
+         "plain_ms": b1["textured"]["plain_ms"], "bound_ms": b1["textured"]["bound_ms"],
+         "bound_by": b1["textured"]["bound_by"], "library_ms": None,
+         "by_scene": {sc: {k: r[k] for k in ("ms", "ms_runs", "device_ms", "plain_ms", "bound_ms", "bit_exact",
+                                             "pairs", "big_list", "bins_bytes")} for sc, r in b1.items()}},
         {"name": "B2 segment_rows._gather_kernel", "route": "cuda",
          "source": "drtk_tpu_torch/csrc/gather_rows.cu", "replaces": "drtk_tpu/ops/segment_rows.py:359",
          "launches": main_launches["B2 gather_rows"], "launches_per_step": 5, "max_abs_err": 0.0,
-         "ms": b2_step("ms"), "plain_ms": b2_step("plain_ms"), "bound_ms": b2_step("bound_ms"),
-         "bound_by": "bytes", "library_ms": b2_step("library_ms")},
+         "ms": b2_step("ms"), "device_ms": b2_step("device_ms"), "plain_ms": b2_step("plain_ms"),
+         "bound_ms": b2_step("bound_ms"), "bound_by": "bytes", "library_ms": b2_step("library_ms"),
+         "library_device_ms": b2_step("library_device_ms"),
+         "inverse8_step": {k: b2_step(k, b2_inv) for k in b2_keys},
+         "per_launch": {image: {k_dim: {k: r[k] for k in b2_keys if k != "plain_ms"} for k_dim, r in recs.items()}
+                        for image, recs in (("textured", b2), ("inverse8", b2_inv))}},
         {"name": "B3 segment_rows._accumulate_kernel", "route": "cuda",
          "source": "drtk_tpu_torch/csrc/scatter_rows.cu", "replaces": "drtk_tpu/ops/segment_rows.py:129",
          "launches": main_launches["B3 scatter_rows"], "launches_per_step": 3,
          "max_abs_err": max(b3[9]["max_abs_err"], b3[6]["max_abs_err"]),
-         "ms": b3_step("ms"), "plain_ms": b3_step("plain_ms"), "bound_ms": b3_step("bound_ms"),
-         "bound_by": "bytes", "library_ms": b3_step("library_ms")},
+         "ms": b3_step("ms"), "device_ms": b3_step("device_ms"), "plain_ms": b3_step("plain_ms"),
+         "bound_ms": b3_step("bound_ms"), "bound_by": "bytes", "library_ms": b3_step("library_ms"),
+         "library_device_ms": b3_step("library_device_ms")},
         {"name": "B4 window_accum._window_kernel", "route": "cuda",
          "source": "drtk_tpu_torch/csrc/window_accum.cu", "replaces": "drtk_tpu/ops/window_accum.py:92",
          "launches": main_launches["B4 window_accum"], "launches_per_step": 1, "max_abs_err": b4["max_abs_err"],
-         "ms": b4["ms"], "plain_ms": b4["plain_ms"], "bound_ms": b4["bound_ms"], "bound_by": "bytes",
-         "library_ms": b4["library_ms"]},
+         "ms": b4["ms"], "device_ms": b4["device_ms"], "plain_ms": b4["plain_ms"], "bound_ms": b4["bound_ms"],
+         "bound_by": "bytes", "library_ms": b4["library_ms"], "library_device_ms": b4["library_device_ms"]},
         {"name": "B5 rasterize_pallas._lines_tile_kernel", "route": "cuda",
          "source": "drtk_tpu_torch/csrc/rasterize_lines.cu", "replaces": "drtk_tpu/ops/rasterize_pallas.py:715",
          "launches": wire_launches["B5 rasterize_lines"], "launches_per_step": 1,
          "max_abs_err": b5["inverse8"]["max_abs_depth_err"], "ms": b5["inverse8"]["ms"],
-         "plain_ms": b5["inverse8"]["plain_ms"], "bound_ms": b5["inverse8"]["bound_ms"],
+         "device_ms": b5["inverse8"]["device_ms"], "plain_ms": b5["inverse8"]["plain_ms"], "bound_ms": b5["inverse8"]["bound_ms"],
          "bound_by": b5["inverse8"]["bound_by"], "library_ms": None},
     ]
     for row, key in zip(kernels, ("B1 rasterize", "B2 gather_rows", "B3 scatter_rows", "B4 window_accum",

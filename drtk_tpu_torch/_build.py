@@ -21,7 +21,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "SOURCES", "build_all", "load"]
+__all__ = ["BUILD_DIR", "SOURCES", "build_all", "check", "entry", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "drtk_tpu_torch"
@@ -33,6 +33,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_entries: dict[str, ctypes._CFuncPtr] = {}
 # ptxas' report (registers, shared memory, spills) of each build, by source.
 build_logs: dict[str, str] = {}
 
@@ -112,10 +113,23 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    """Raise if a C entry of ``lib`` returned a CUDA error code (its
-    ``cudaGetLastError()`` after the launch)."""
+def entry(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of ``csrc/<name>.cu``, which returns a CUDA
+    error code; its argument types are set once, at its first lookup."""
+    fn = _entries.get(symbol)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _entries[symbol] = fn
+    return fn
+
+
+def check(name: str, err: int, what: str) -> None:
+    """Raise if a C entry of ``csrc/<name>.cu`` returned a CUDA error code
+    (its ``cudaGetLastError()`` after the launch)."""
     if err != 0:
+        lib = load(name)
         lib.drtk_cuda_error_string.restype = ctypes.c_char_p
         lib.drtk_cuda_error_string.argtypes = [ctypes.c_int]
         msg = lib.drtk_cuda_error_string(err).decode()

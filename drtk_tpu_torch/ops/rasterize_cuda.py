@@ -3,16 +3,18 @@ the card (counterparts of ``drtk_tpu/ops/rasterize_pallas.py``).
 
 The triangle setup (``triangle_setup``, ``line_setup`` and the canvas cull)
 stays in torch. :func:`pack_setup` packs it into one row per triangle for
-``csrc/rasterize.cu`` (B1, filled triangles); :func:`pack_lines` into one
-row per triangle plus the running count of window pixels for
-``csrc/rasterize_lines.cu`` (B5, wireframe). Both kernels resolve into a
-64-bit key per pixel and unpack it to (depth, index).
+``csrc/rasterize.cu`` (B1, filled triangles), which bins the triangles
+into screen tiles on the device and resolves each tile's z-buffer in
+registers; :func:`pack_lines` into one row per triangle plus the running
+count of window pixels for ``csrc/rasterize_lines.cu`` (B5, wireframe),
+which resolves into a 64-bit key per pixel and unpacks it to (depth,
+index).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -38,6 +40,22 @@ SETUP_FLOATS = 12  # ea[3], eb[3], ec[3], q[3]
 SETUP_INTS = 5  # top-left bits, x_lo, x_hi, y_lo, y_hi
 LINE_FLOATS = 19  # ea[3], eb[3], ec[3], p0 p1 p2 (x, y), d_inv[3], inv_den
 LINE_INTS = 5  # top-left bits | visibility bits << 3, x_lo, x_hi, y_lo, y_hi
+TILE = 16  # B1's screen tiles are TILE x TILE pixels (kTile in csrc/rasterize.cu)
+MAX_TILES = 16  # a triangle whose pixel range touches more tiles goes to its batch's big list (kMaxTiles)
+_MAX_BATCH = 65535  # B1 takes the batch from blockIdx.y
+_B1_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int32] * 5 + [ctypes.c_void_p]
+_B5_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int32] * 5 + [ctypes.c_void_p]
+
+
+class TileBins(NamedTuple):
+    """Kernel B1's device-built bins of one call, all int32. The tiles of
+    batch n are ``n*T .. n*T + T - 1``, row-major, with ``T =
+    ceil(H/TILE) * ceil(W/TILE)``."""
+
+    starts: torch.Tensor  # [N*T + 1] segment starts in ``pairs``; starts[-1] = pairs in use
+    big_count: torch.Tensor  # [N] triangles in each batch's big list
+    pairs: torch.Tensor  # [N*F*MAX_TILES] triangle ids by tile segment (capacity)
+    big: torch.Tensor  # [N*F] each batch's big list, from n*F (capacity)
 
 
 def _window_meta(bits, x0, x1, y0, y1, valid):
@@ -87,24 +105,48 @@ def resolve_packed(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel B1 on packed setup rows; returns (depth f32, index i32),
     each [N, H, W], rows [y_offset, y_offset + height) of the frame."""
+    depth, index, _ = _launch_b1(coef, meta, height, width, y_offset)
+    return depth, index
+
+
+def _bin_sizes(n: int, f_cnt: int, height: int, width: int) -> Tuple[int, int, int, int, int]:
+    """Words of B1's int32 scratch, in its order: tile counts, big-list
+    counts, segment starts, pairs, big lists."""
+    n_tiles = n * -(-height // TILE) * -(-width // TILE)
+    return n_tiles, n, n_tiles + 1, n * f_cnt * MAX_TILES, n * f_cnt
+
+
+def _launch_b1(coef, meta, height: int, width: int, y_offset: int):
+    """Launch kernel B1; returns (depth, index, the int32 scratch that holds
+    its bins)."""
     global launches
     n, f_cnt = _check_rows("rasterize_cuda", coef, meta, SETUP_FLOATS, SETUP_INTS)
+    sizes = _bin_sizes(n, f_cnt, height, width)
+    if n > _MAX_BATCH or sizes[3] >= 2**31 or sizes[0] >= 2**31:
+        raise ValueError(
+            f"rasterize_cuda: the kernel takes at most {_MAX_BATCH} batches and 32-bit bin offsets, "
+            f"got N={n}, F={f_cnt}, {sizes[0]} tiles"
+        )
     dev = coef.device
-    keys = torch.empty((n, height, width), dtype=torch.int64, device=dev)
     depth = torch.empty((n, height, width), dtype=torch.float32, device=dev)
     index = torch.empty((n, height, width), dtype=torch.int32, device=dev)
-    lib = _build.load("rasterize")
-    fn = lib.drtk_rasterize_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int32] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    scratch = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+    fn = _build.entry("rasterize", "drtk_rasterize_f32", _B1_ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(
-        coef.data_ptr(), meta.data_ptr(), keys.data_ptr(), depth.data_ptr(),
-        index.data_ptr(), n, f_cnt, height, width, y_offset, stream,
+        coef.data_ptr(), meta.data_ptr(), depth.data_ptr(), index.data_ptr(), scratch.data_ptr(),
+        n, f_cnt, height, width, y_offset, stream,
     )
-    _build.check(lib, err, "rasterize kernel")
+    _build.check("rasterize", err, "rasterize kernel")
     launches += 1
-    return depth, index
+    return depth, index, scratch
+
+
+def _resolve_binned(coef, meta, height: int, width: int, y_offset: int = 0):
+    """:func:`resolve_packed`, also returning the call's :class:`TileBins`."""
+    depth, index, scratch = _launch_b1(coef, meta, height, width, y_offset)
+    _, big_count, starts, pairs, big = scratch.split(_bin_sizes(*coef.shape[:2], height, width))
+    return depth, index, TileBins(starts, big_count, pairs, big)
 
 
 def rasterize_cuda(
@@ -165,16 +207,13 @@ def resolve_lines_packed(
     keys = torch.empty((n, height, width), dtype=torch.int64, device=dev)
     depth = torch.empty((n, height, width), dtype=torch.float32, device=dev)
     index = torch.empty((n, height, width), dtype=torch.int32, device=dev)
-    lib = _build.load("rasterize_lines")
-    fn = lib.drtk_rasterize_lines_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int32] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.entry("rasterize_lines", "drtk_rasterize_lines_f32", _B5_ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(
         rows.data_ptr(), meta.data_ptr(), ends.data_ptr(), keys.data_ptr(), depth.data_ptr(),
         index.data_ptr(), n, f_cnt, height, width, y_offset, stream,
     )
-    _build.check(lib, err, "rasterize_lines kernel")
+    _build.check("rasterize_lines", err, "rasterize_lines kernel")
     lines_launches += 1
     return depth, index
 

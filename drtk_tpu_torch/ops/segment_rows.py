@@ -32,6 +32,9 @@ scatter_launches = 0
 
 _C_ENTRY = {torch.float32: "drtk_gather_rows_f32", torch.float64: "drtk_gather_rows_f64"}
 _C_SCATTER = {torch.float32: "drtk_scatter_rows_f32", torch.float64: "drtk_scatter_rows_f64"}
+_GATHER_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int32] * 4 + [ctypes.c_void_p]
+_SCATTER_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_int32] * 2 + [ctypes.c_void_p]
+_MAX_BATCH = 65535  # B2 takes the batch from blockIdx.y
 
 
 def _gather_rows_plain(table: torch.Tensor, index_img: torch.Tensor) -> torch.Tensor:
@@ -56,20 +59,22 @@ def _gather_rows_cuda(table: torch.Tensor, index_img: torch.Tensor) -> torch.Ten
         raise TypeError(f"gather_rows_by_index: no kernel for {table.dtype} tables")
     if index_img.dtype != torch.int32:
         raise TypeError(f"gather_rows_by_index: expected int32 index, got {index_img.dtype}")
-    if table.device != index_img.device:
-        raise ValueError("gather_rows_by_index: table and index_img are on different devices")
+    if table.device.type != "cuda" or table.device != index_img.device:
+        raise ValueError("gather_rows_by_index: table and index_img must lie on one CUDA device")
     n, f_cnt, k_dim = table.shape
     _, h, w = index_img.shape
+    if n > _MAX_BATCH or max(h * w, f_cnt) * k_dim >= 2**31:
+        raise ValueError(
+            f"gather_rows_by_index: the kernel takes at most {_MAX_BATCH} batches and 32-bit offsets "
+            f"(P*K, F*K < 2**31), got N={n}, P={h * w}, F={f_cnt}, K={k_dim}"
+        )
     table = table.contiguous()
     index_img = index_img.contiguous()
     out = torch.empty((n, h, w, k_dim), dtype=table.dtype, device=table.device)
-    lib = _build.load("gather_rows")
-    fn = getattr(lib, _C_ENTRY[table.dtype])
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_int32] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.entry("gather_rows", _C_ENTRY[table.dtype], _GATHER_ARGTYPES)
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = fn(table.data_ptr(), index_img.data_ptr(), out.data_ptr(), n, h * w, f_cnt, k_dim, stream)
-    _build.check(lib, err, "gather_rows kernel")
+    _build.check("gather_rows", err, "gather_rows kernel")
     launches += 1
     return out
 
@@ -133,13 +138,10 @@ def _scatter_rows_cuda(rows: torch.Tensor, index_img: torch.Tensor, num_faces: i
     rows = rows.contiguous()
     index_img = index_img.contiguous()
     out = torch.zeros((n, num_faces, k_dim), dtype=rows.dtype, device=rows.device)
-    lib = _build.load("scatter_rows")
-    fn = getattr(lib, _C_SCATTER[rows.dtype])
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_int32] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.entry("scatter_rows", _C_SCATTER[rows.dtype], _SCATTER_ARGTYPES)
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     err = fn(rows.data_ptr(), index_img.data_ptr(), out.data_ptr(), n, h * w, num_faces, k_dim, stream)
-    _build.check(lib, err, "scatter_rows kernel")
+    _build.check("scatter_rows", err, "scatter_rows kernel")
     scatter_launches += 1
     return out
 

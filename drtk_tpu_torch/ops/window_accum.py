@@ -26,6 +26,10 @@ __all__ = ["window_accumulate"]
 launches = 0
 
 _C_ENTRY = {torch.float32: "drtk_window_accum_f32", torch.float64: "drtk_window_accum_f64"}
+_ARGTYPES = (
+    [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [ctypes.c_int32] + [ctypes.c_int64] * 3
+    + [ctypes.c_int32] * 2 + [ctypes.c_void_p]
+)
 
 
 def _window_accumulate_plain(rows, iy, ix, out_h: int, out_w: int) -> torch.Tensor:
@@ -55,20 +59,14 @@ def _window_accumulate_cuda(rows, iy, ix, out_h: int, out_w: int) -> torch.Tenso
     iy = iy.contiguous()
     ix = ix.contiguous()
     out = torch.zeros((n, k_dim, out_h, out_w), dtype=rows.dtype, device=rows.device)
-    lib = _build.load("window_accum")
-    fn = getattr(lib, _C_ENTRY[rows.dtype])
-    fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [ctypes.c_int32] + [ctypes.c_int64] * 3
-        + [ctypes.c_int32] * 2 + [ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
+    fn = _build.entry("window_accum", _C_ENTRY[rows.dtype], _ARGTYPES)
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     s_n, s_k, s_p = rows.stride()
     err = fn(
         rows.data_ptr(), iy.data_ptr(), ix.data_ptr(), out.data_ptr(), n, p, k_dim,
         s_n, s_k, s_p, out_h, out_w, stream,
     )
-    _build.check(lib, err, "window_accum kernel")
+    _build.check("window_accum", err, "window_accum kernel")
     launches += 1
     return out
 

@@ -5,15 +5,16 @@ JAX. Tests marked ``cuda`` need an NVIDIA GPU and nvcc and skip elsewhere:
 run them on the card with ``python -m pytest tests/test_torch_kernels.py
 -m cuda -q``. The unmarked tests hold, on the CPU, what surrounds the
 kernels: the dispatch, the launch counts and the setup packing, the latter
-against numpy emulations of kernel B1's and kernel B5's algorithms (B5's
-down to its thread-to-(triangle, pixel) mapping), full frame and row tiles.
+against numpy emulations of kernel B1's and kernel B5's algorithms (B1's
+tile bins, big list and per-tile resolve; B5's thread-to-(triangle, pixel)
+mapping), full frame and row tiles.
 
 Tolerances: kernel B2 copies table rows, so it must be bit-exact
 (torch.equal). Kernels B1 and B5 round every product, sum and quotient on
 its own in the plain version's order, so they should match the plain
-version exactly, and a row tile the full frame's rows (asserted exactly);
-the assertion against the plain version still allows the rasterizer's
-documented tie rule (index flips
+version exactly, and a row tile the full frame's rows (asserted exactly;
+B1 against the plain resolve too); the other assertions against the plain
+version allow the rasterizer's documented tie rule (index flips
 only at pixels whose two depths agree to 1e-4 relative, fewer than 1e-3 of
 the pixels; depth to rtol 1e-4 / atol 1e-6). Kernels B3 and B4 add with
 atomics in an order that changes from run to run: rtol 1e-5 and an atol of
@@ -70,12 +71,40 @@ def _soup(n, num_v, num_f, h, w, seed):
     return {"v": np.concatenate([xy, z], -1), "vi": vi}
 
 
+def _binning_scene(case):
+    """Kernel B1's list boundaries on a 96x288 canvas (6 x 18 tiles of 16
+    pixels): triangle 0 spans exactly MAX_TILES tiles ("span_s", 4 x 4, so
+    it goes to the tiles' segments) or one more ("span_s_plus_1", 17 x 1, so
+    it goes to the big list), or ("tile_borders") two squares' worth of
+    triangles have corners and edges on tile borders, pixel centres lying on
+    the edges at x = 32 and y = 16, 48, and an edge at x = 47.5 between two
+    tiles. Beside them, a far triangle covering the whole canvas (big list)
+    and a soup of small near ones."""
+    first = {
+        "span_s": [[16.5, 16.5, 5.0], [78.5, 20.5, 5.5], [30.5, 78.5, 6.0]],
+        "span_s_plus_1": [[0.5, 50.5, 5.0], [270.5, 55.0, 5.5], [100.5, 60.5, 6.0]],
+        "tile_borders": [[32.0, 16.0, 5.0], [64.0, 16.0, 5.0], [32.0, 48.0, 5.0],
+                         [64.0, 48.0, 5.5], [47.5, 16.0, 4.5], [47.5, 80.0, 4.5], [96.0, 48.0, 6.0]],
+    }[case]
+    vi = [[0, 1, 2], [1, 3, 2], [4, 5, 6]] if case == "tile_borders" else [[0, 1, 2]]
+    far = [[-50.0, -50.0, 9.0], [600.0, -20.0, 9.0], [-40.0, 400.0, 9.0]]
+    soup = _soup(1, 30, 20, 96, 288, 7)
+    soup["v"][..., 2] += 4.0  # behind the featured triangles, partly before the far one
+    v = np.concatenate([np.float32(first + far)[None], soup["v"]], axis=1)
+    vi = np.concatenate([np.int32(vi), np.int32([[len(first), len(first) + 1, len(first) + 2]]),
+                         soup["vi"] + len(first) + 3]).astype(np.int32)
+    return {"v": v.astype(np.float32), "vi": vi}
+
+
 SCENES = {
     "soup_batch3": (lambda: _soup(3, 64, 96, 64, 128, 1), 64, 128),
     "nonaligned": (lambda: _soup(1, 48, 64, 70, 130, 2), 70, 130),
     "grid": (lambda: make_scene_arrays(128, 256, 9), 128, 256),
     "entry": (lambda: entry_scene_arrays(h=128, w=128), 128, 128),
+    **{case: (lambda case=case: _binning_scene(case), 96, 288) for case in ("span_s", "span_s_plus_1", "tile_borders")},
 }
+B1_SCENES = list(SCENES)
+BINNING_SCENES = ["span_s", "span_s_plus_1", "tile_borders"]
 NO_LAUNCHES = {
     "B1 rasterize": 0, "B2 gather_rows": 0, "B3 scatter_rows": 0, "B4 window_accum": 0, "B5 rasterize_lines": 0,
 }
@@ -140,61 +169,132 @@ def test_accumulation_shape_validation():
 
 
 def _emulate_b1(coef, meta, h, w, y_offset=0):
-    """numpy emulation of csrc/rasterize.cu: per triangle, walk its packed
-    pixel range, round each product and sum on its own in float32, and keep
-    the smallest packed key (~float_bits(di) << 32) | id."""
+    """numpy emulation of csrc/rasterize.cu. Binning: each triangle's pixel
+    range, clipped to the viewport, touches a rectangle of TILE x TILE
+    tiles; with at most MAX_TILES of them the triangle joins each tile's
+    segment (capacity N*F*MAX_TILES in all), else its batch's big list.
+    Resolve, per tile: its segment and the big-list triangles whose range
+    meets the tile, each tested at the tile's pixels inside its range, every
+    product and sum rounded on its own in float32, edge i covering where
+    e_i > its threshold (-(the smallest denormal) on a top-left edge, else
+    0); the smallest key (~float_bits(di) << 32) | id wins. Returns depth,
+    index and the bins: per triangle its tile count and list, and the number
+    of pairs."""
+    tile, cap = rasterize_cuda.TILE, rasterize_cuda.MAX_TILES
     n, f_cnt, _ = coef.shape
-    keys = np.full((n, h, w), np.iinfo(np.uint64).max, np.uint64)
+    tiles_y, tiles_x = -(-h // tile), -(-w // tile)
+    segs = [[[] for _ in range(tiles_y * tiles_x)] for _ in range(n)]
+    big = [[] for _ in range(n)]
+    n_tiles = np.zeros((n, f_cnt), np.int64)
     for b in range(n):
         for t in range(f_cnt):
-            tl_bits, x_lo, x_hi, y_lo, y_hi = (int(x) for x in meta[b, t])
+            _, x_lo, x_hi, y_lo, y_hi = (int(x) for x in meta[b, t])
+            x_lo, x_hi = max(x_lo, 0), min(x_hi, w - 1)
+            y_lo, y_hi = max(y_lo - y_offset, 0), min(y_hi - y_offset, h - 1)
             if x_lo > x_hi or y_lo > y_hi:
                 continue
-            c = coef[b, t]
-            px = np.arange(x_lo, x_hi + 1, dtype=np.float32)[None, :]
-            py = np.arange(y_lo, y_hi + 1, dtype=np.float32)[:, None]
-            e = [(c[k] * px + c[3 + k] * py) + c[6 + k] for k in range(3)]
-            keep = np.ones(e[0].shape, bool)
+            tx, ty = range(x_lo // tile, x_hi // tile + 1), range(y_lo // tile, y_hi // tile + 1)
+            n_tiles[b, t] = len(tx) * len(ty)
+            if n_tiles[b, t] > cap:
+                big[b].append(t)
+                continue
+            for j in ty:
+                for i in tx:
+                    segs[b][j * tiles_x + i].append(t)
+    n_pairs = sum(len(seg) for batch in segs for seg in batch)
+    assert n_pairs <= n * f_cnt * cap
+
+    no_key = np.iinfo(np.uint64).max
+    depth = np.zeros((n, h, w), np.float32)
+    index = np.full((n, h, w), -1, np.int32)
+    for b in range(n):
+        for t_i, seg in enumerate(segs[b]):
+            ty, tx = divmod(t_i, tiles_x)
+            x0, y0 = tx * tile, ty * tile + y_offset  # y0: frame row
+            m = meta[b]
+            on_tile = [t for t in big[b] if m[t, 1] < x0 + tile and m[t, 2] >= x0 and m[t, 3] < y0 + tile
+                       and m[t, 4] >= y0]
+            ids = np.array(seg + on_tile, np.int64)
+            if ids.size == 0:
+                continue
+            c, m = coef[b, ids][:, :, None, None], meta[b, ids][:, :, None, None]
+            xs = np.arange(x0, x0 + tile)[None, None, :]
+            ys = np.arange(y0, y0 + tile)[None, :, None]
+            px, py = xs.astype(np.float32), ys.astype(np.float32)
+            keep = (xs >= m[:, 1]) & (xs <= m[:, 2]) & (ys >= m[:, 3]) & (ys <= m[:, 4])
+            e = [(c[:, k] * px + c[:, 3 + k] * py) + c[:, 6 + k] for k in range(3)]
             for k in range(3):
-                keep &= (e[k] > 0) | ((e[k] == 0) & bool(tl_bits >> k & 1))
-            di = (e[0] * c[9] + e[1] * c[10]) + e[2] * c[11]
+                keep = keep & (e[k] > np.where(m[:, 0] >> k & 1 == 1, -np.float32(2.0**-149), np.float32(0)))
+            di = (e[0] * c[:, 9] + e[1] * c[:, 10]) + e[2] * c[:, 11]
             bits = di.astype(np.float32).view(np.uint32) & np.uint32(0x7FFFFFFF)
-            key = ((~bits).astype(np.uint64) << np.uint64(32)) | np.uint64(t)
-            win = keys[b, y_lo - y_offset : y_hi - y_offset + 1, x_lo : x_hi + 1]
-            win[keep] = np.minimum(win[keep], key[keep])
-    ids = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-    covered = ids != np.uint32(0xFFFFFFFF)
-    di = (~(keys >> np.uint64(32)).astype(np.uint32)).view(np.float32)
-    depth = np.where(covered, np.float32(1) / np.maximum(di, np.float32(1e-8)), np.float32(0))
-    return depth, np.where(covered, ids.astype(np.int32), -1)
+            key = ((~bits).astype(np.uint64) << np.uint64(32)) | ids[:, None, None].astype(np.uint64)
+            best = np.where(keep, key, no_key).min(axis=0)
+            rows, cols = min(tile, h - (y0 - y_offset)), min(tile, w - x0)
+            best = best[:rows, :cols]
+            covered = best != no_key
+            di_best = (~(best >> np.uint64(32)).astype(np.uint32)).view(np.float32)
+            win = (b, slice(y0 - y_offset, y0 - y_offset + rows), slice(x0, x0 + cols))
+            depth[win] = np.where(covered, np.float32(1) / np.maximum(di_best, np.float32(1e-8)), np.float32(0))
+            index[win] = np.where(covered, (best & np.uint64(0xFFFFFFFF)).astype(np.int32), -1)
+    return depth, index, {"tiles": n_tiles, "big": big, "pairs": n_pairs}
 
 
 # (y_offset, rows): the full frame, and row tiles of it
 VIEWPORTS = [(0, None), (16, 24), (40, 24)]
 
 
-@pytest.mark.parametrize("viewport", VIEWPORTS)
-@pytest.mark.parametrize("scene", ["soup_batch3", "nonaligned", "grid", "entry"])
-def test_packed_setup_reproduces_plain_resolve(scene, viewport):
-    """What kernel B1 computes from pack_setup's rows (emulated in numpy)
-    equals the plain resolve bit for bit, in a row tile too."""
+def _packed(scene, y0=0, hb=None):
+    """pack_setup's rows of a SCENES scene for rows [y0, y0 + hb), and the
+    setup, the canvas cull and the frame's height and width."""
     make, h, w = SCENES[scene]
-    y0, hb = viewport
-    hb = hb or h
     s = make()
     v = torch.from_numpy(s["v"])
     vi = broadcast_vi(torch.from_numpy(s["vi"]), v.shape[0])
     setup = triangle_setup(v, vi)
     valid = _canvas_cull(setup, h, w)
-    coef, meta = rasterize_cuda.pack_setup(setup, valid, hb, w, y0)
+    coef, meta = rasterize_cuda.pack_setup(setup, valid, hb or h, w, y0)
+    return coef, meta, setup, valid, h, w
+
+
+@pytest.mark.parametrize("viewport", VIEWPORTS)
+@pytest.mark.parametrize("scene", B1_SCENES)
+def test_packed_setup_reproduces_plain_resolve(scene, viewport):
+    """What kernel B1 computes from pack_setup's rows (emulated in numpy)
+    equals the plain resolve bit for bit, in a row tile too."""
+    y0, hb = viewport
+    coef, meta, setup, valid, h, w = _packed(scene, y0, hb)
+    hb = hb or h
     assert coef.shape[-1] == rasterize_cuda.SETUP_FLOATS and meta.shape[-1] == rasterize_cuda.SETUP_INTS
-    depth, index = _emulate_b1(coef.numpy(), meta.numpy(), hb, w, y0)
+    depth, index, _ = _emulate_b1(coef.numpy(), meta.numpy(), hb, w, y0)
     d_ref, i_ref = _rasterize_plain(setup, valid, hb, w, y_offset=y0)
     np.testing.assert_array_equal(index, i_ref.numpy())
     np.testing.assert_array_equal(depth, d_ref.numpy())
     if viewport[1] is not None:
         d_full, i_full = _rasterize_plain(setup, valid, h, w)
         np.testing.assert_array_equal(i_ref.numpy(), i_full[:, y0 : y0 + hb].numpy())
+
+
+@pytest.mark.parametrize("scene", BINNING_SCENES)
+def test_b1_bins_reach_both_lists(scene):
+    """Each binning scene sends its triangle 0 to the list its name says,
+    and some triangle to each list; the emulated resolve (held bit for bit
+    against the plain one in test_packed_setup_reproduces_plain_resolve)
+    draws the featured triangles as the scene describes."""
+    coef, meta, _, _, h, w = _packed(scene)
+    _, index, bins = _emulate_b1(coef.numpy(), meta.numpy(), h, w)
+    tiles, big, img = bins["tiles"], bins["big"][0], index[0]
+    assert bins["pairs"] > 0 and big and (img == 0).any()
+    if scene == "span_s":
+        assert tiles[0, 0] == rasterize_cuda.MAX_TILES and 0 not in big
+    elif scene == "span_s_plus_1":
+        assert tiles[0, 0] == rasterize_cuda.MAX_TILES + 1 and 0 in big
+    else:
+        # The square [32, 64] x [16, 48]: its top and left edges (tile borders
+        # x = 32, y = 16) are drawn, its bottom edge (y = 48) is not; the
+        # nearer triangle 2 starts at x = 47.5, between tiles 2 and 3.
+        assert (img[16:48, 32] == 0).all() and (img[16, 32:47] == 0).all()
+        assert not np.isin(img[48, 33:47], [0, 1]).any()
+        assert img[40, 47] in (0, 1) and img[40, 48] == 2
 
 
 def _emulate_b5(rows, meta, ends, h, w, y_offset=0):
@@ -286,11 +386,14 @@ def test_packed_lines_reproduce_plain_resolve(scene, viewport):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k_dim", [6, 9, 16])
+@pytest.mark.parametrize("k_dim", [1, 6, 9, 16, 42])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_gather_kernel_is_bit_exact(cuda_device, k_dim, dtype):
+    """K = 6, 9, 16 take the compile-time kernels, 1 and 42 the run-time K;
+    an odd P (71 x 131) starts batches 1 and 2 off the 16-byte grid, so the
+    stores have misaligned heads and tails."""
     rng = np.random.RandomState(k_dim)
-    n, f_cnt, h, w = 2, 300, 70, 130
+    n, f_cnt, h, w = 3, 300, 71, 131
     table = torch.from_numpy(rng.randn(n, f_cnt, k_dim)).to(dtype)
     idx = torch.from_numpy(rng.randint(-1, f_cnt, (n, h, w)).astype(np.int32))
     idx[0, 0, :4] = torch.tensor([-5, 0, f_cnt - 1, f_cnt + 7], dtype=torch.int32)
@@ -304,7 +407,20 @@ def test_gather_kernel_is_bit_exact(cuda_device, k_dim, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scene", ["soup_batch3", "nonaligned", "grid", "entry"])
+def test_gather_kernel_raises_past_32_bit_offsets(cuda_device):
+    """Offsets within a batch are 32-bit: the wrapper refuses F*K or P*K of
+    2**31 before it allocates (stride-0 views stand in for the tensors)."""
+    one = torch.zeros((), device=cuda_device)
+    idx = torch.zeros((1, 4, 4), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="32-bit"):
+        segment_rows.gather_rows_by_index(one.expand(1, 2**27, 16), idx)  # F*K = 2**31
+    with pytest.raises(ValueError, match="32-bit"):
+        big_idx = torch.zeros((), dtype=torch.int32, device=cuda_device).expand(1, 2**14, 2**13)
+        segment_rows.gather_rows_by_index(one.expand(1, 4, 16), big_idx)  # P*K = 2**31
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", B1_SCENES)
 def test_rasterize_kernel_matches_plain(cuda_device, scene):
     make, h, w = SCENES[scene]
     s = make()
@@ -316,6 +432,25 @@ def test_rasterize_kernel_matches_plain(cuda_device, scene):
     assert rasterize_cuda.launches == before + 1
     d_ref, i_ref = tt.rasterize_with_depth(v, vi, h, w, impl="plain")
     _assert_raster_match(d_ref, i_ref, d, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("viewport", VIEWPORTS)
+@pytest.mark.parametrize("scene", B1_SCENES)
+def test_rasterize_kernel_bins_and_resolve_exactly(cuda_device, scene, viewport):
+    """Kernel B1 on pack_setup's rows: depth and index bit-identical to the
+    plain resolve, and its device-built bins (pairs in use, big lists) those
+    of the numpy emulation."""
+    y0, hb = viewport
+    coef, meta, setup, valid, h, w = _packed(scene, y0, hb)
+    hb = hb or h
+    d, i, bins = rasterize_cuda._resolve_binned(coef.to(cuda_device), meta.to(cuda_device), hb, w, y0)
+    torch.cuda.synchronize()
+    d_ref, i_ref = _rasterize_plain(setup, valid, hb, w, y_offset=y0)
+    assert torch.equal(i.cpu(), i_ref) and torch.equal(d.cpu(), d_ref)
+    _, _, want = _emulate_b1(coef.numpy(), meta.numpy(), hb, w, y0)
+    assert int(bins.starts[-1]) == want["pairs"]
+    assert bins.big_count.tolist() == [len(b) for b in want["big"]]
 
 
 @pytest.mark.cuda
