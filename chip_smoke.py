@@ -18,8 +18,11 @@ checked just after:
   with a silhouette, gradients to the world vertices and the texture, an
   Adam update).
 
-The face-row gather (B2) is held against its plain version on the index
-images of the textured scene and of the inverse8 step's 8 views; triangle
+The face-row gather (B2), the pixel-to-face accumulation (B3) and the
+texture-gradient scatter (B4) are held against their plain versions on the
+index images (B4: the taps) of the textured scene and of the inverse8
+step's 8 views, B3 and B4 with the global atomics their designs imply
+(modeled from the index image or the taps, not counted on the card); triangle
 rasterization (B1), bit for bit, on the entry and textured scenes and on
 the views of the inverse8 step; wireframe rasterization (B5) on the entry,
 textured and inverse8 scenes; and row-tile viewports of B1 and B5 against
@@ -175,6 +178,52 @@ def check_raster(name, d_ref, i_ref, d, i) -> dict:
         raise AssertionError(f"{name}: {int(mism.sum())} index mismatches, not all at depth ties")
     torch.testing.assert_close(d, d_ref, rtol=1e-4, atol=1e-6)
     return {"index_mismatches": int(mism.sum()), "max_abs_depth_err": (d - d_ref).abs().max().item()}
+
+
+# Models of the global atomics kernels B3 and B4 issue, from their tilings
+# (csrc/scatter_rows.cu, csrc/window_accum.cu): counted from the index image
+# or the taps, not read from the kernels, which count nothing. The CPU tests
+# hold them to numpy emulations of the kernels' algorithms.
+SCATTER_TILE = (8, 32)  # B3's pixel tile (rows, columns): kTileH x kTileW
+
+
+def modeled_scatter_atomics(index_img: torch.Tensor, num_faces: int, k_dim: int) -> int:
+    """Global atomics of B3's design for ``index_img``: one per (pixel tile,
+    distinct clamped foreground face, k)."""
+    n, h, w = index_img.shape
+    if num_faces == 0:
+        return 0
+    tile_h, tile_w = SCATTER_TILE
+    dev = index_img.device
+    tiles_x = -(-w // tile_w)
+    tile = (torch.arange(h, device=dev) // tile_h)[:, None] * tiles_x + (torch.arange(w, device=dev) // tile_w)
+    n_tiles = -(-h // tile_h) * tiles_x
+    key = (torch.arange(n, device=dev)[:, None, None] * n_tiles + tile) * num_faces
+    key = key + index_img.long().clamp(max=num_faces - 1)
+    return int(torch.unique(key[index_img >= 0]).numel()) * k_dim
+
+
+def b4_warp_patch(rows_hw: tuple[int, int]) -> tuple[int, int]:
+    """The taps (rows, columns) a warp of B4 takes on a ``rows_hw`` tap grid:
+    4 x 8, or 1 x 32 on a grid of fewer than 8 rows."""
+    return (4, 8) if rows_hw[0] >= 8 else (1, 32)
+
+
+def modeled_window_atomics(iy: torch.Tensor, ix: torch.Tensor, out_h: int, out_w: int, k_dim: int,
+                           rows_hw: tuple[int, int]) -> int:
+    """Global atomics of B4's design for these taps on their ``rows_hw``
+    grid: one per (warp patch, distinct texel its live taps touch, k)."""
+    n, p = iy.shape
+    r_h, r_w = rows_hw
+    patch_h, patch_w = b4_warp_patch(rows_hw)
+    dev = iy.device
+    patches_x = -(-r_w // patch_w)
+    per_image = -(-r_h // patch_h) * patches_x
+    patch = (torch.arange(r_h, device=dev) // patch_h)[:, None] * patches_x + torch.arange(r_w, device=dev) // patch_w
+    patch = torch.arange(n, device=dev)[:, None] * per_image + patch.reshape(1, -1)
+    live = (iy >= 0) & (iy < out_h) & (ix >= 0) & (ix < out_w)
+    key = (patch.expand(n, p)[live] * out_h + iy[live].long()) * out_w + ix[live].long()
+    return int(torch.unique(key).numel()) * k_dim
 
 
 def main() -> int:
@@ -357,80 +406,112 @@ def main() -> int:
         "max_abs_bary_err_vs_render_ref": bary_err, "profile": profile,
     })
 
-    # 6. B3 vs plain: rows from a seeded generator, the textured scene's index image
+    # 6. B3 vs plain: rows from a seeded generator on the textured scene's
+    # index image (and, after phase 13, on the inverse8 step's), with the
+    # global atomics of the kernel's design, modeled, against a per-pixel
+    # scatter's.
     gen = torch.Generator(device=dev).manual_seed(0)
-    fg = index_img >= 0
-    n_fg = int(fg.sum())
-    b3 = {}
-    for k_dim in (9, 6):
-        rows = torch.randn((1, H, W, k_dim), generator=gen, device=dev)
-        got = segment_rows.scatter_rows_to_faces(rows, index_img, n_faces)
-        want = segment_rows._scatter_rows_plain(rows, index_img, n_faces)
-        magnitude = segment_rows._scatter_rows_plain(rows.abs(), index_img, n_faces)
-        lib_idx, lib_rows = index_img[fg].long(), rows[fg]
+    b3_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "library_device_ms")
 
-        def library(lib_idx=lib_idx, lib_rows=lib_rows, k_dim=k_dim):
-            return torch.zeros((n_faces, k_dim), device=dev).index_add_(0, lib_idx, lib_rows)
+    def b3_vs_plain(image, idx, f_cnt) -> dict:
+        n = idx.shape[0]
+        fg = idx >= 0
+        n_fg = int(fg.sum())
+        lib_idx = (idx.long().clamp(max=f_cnt - 1) + torch.arange(n, device=dev)[:, None, None] * f_cnt)[fg]
+        recs = {}
+        for k_dim in (9, 6):
+            rows = torch.randn((*idx.shape, k_dim), generator=gen, device=dev)
+            got = segment_rows.scatter_rows_to_faces(rows, idx, f_cnt)
+            want = segment_rows._scatter_rows_plain(rows, idx, f_cnt)
+            magnitude = segment_rows._scatter_rows_plain(rows.abs(), idx, f_cnt)
+            lib_rows = rows[fg]
+
+            def library(lib_rows=lib_rows, k_dim=k_dim):
+                return torch.zeros((n * f_cnt, k_dim), device=dev).index_add_(0, lib_idx, lib_rows)
+
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            # atomics reorder the sums: rtol 1e-5, atol 1e-6 of the summed magnitudes
+            if not bool((err <= 1e-5 * want.abs() + 1e-6 * magnitude).all()):
+                raise AssertionError(
+                    f"B3 {image} K={k_dim}: kernel differs from the plain scatter by {err.max().item()}")
+            lib_err = (library().reshape(n, f_cnt, k_dim) - want).abs()
+            if not bool((lib_err <= 1e-5 * want.abs() + 1e-6 * magnitude).all()):
+                raise AssertionError(f"B3 {image} K={k_dim}: the library yardstick computes another function")
+            nbytes = n_fg * k_dim * 4 + idx.numel() * 4 + n * f_cnt * k_dim * 4
+            atomics = modeled_scatter_atomics(idx, f_cnt, k_dim)
+            recs[k_dim] = {
+                "ms": cuda_ms(lambda: segment_rows._scatter_rows_cuda(rows, idx, f_cnt), 50),
+                "device_ms": graph_ms(lambda: segment_rows._scatter_rows_cuda(rows, idx, f_cnt)),
+                "plain_ms": cuda_ms(lambda: segment_rows._scatter_rows_plain(rows, idx, f_cnt), 20),
+                "library_ms": cuda_ms(library, 50), "library_device_ms": graph_ms(library),
+                "library": "index_add_ of the foreground rows (the plain "
+                "version's core, without its masking)", "foreground_pixels": n_fg,
+                "bytes": nbytes, "bound_ms": nbytes / bw * 1e3, "max_abs_err": err.max().item(),
+                "modeled_global_atomics": atomics, "modeled_per_pixel_atomics": n_fg * k_dim,
+                "modeled_atomics_fall": n_fg * k_dim / max(atomics, 1),
+            }
+            emit({"phase": "B3 vs plain", "image": image, "batch": n, "faces": f_cnt, "K": k_dim, **recs[k_dim]})
+        return recs
+
+    b3 = b3_vs_plain("textured", index_img, n_faces)
+
+    # 7. B4 vs plain on the taps of a step's own grid_sample: the quad-row
+    # index of every pixel's bilinear border sample of the texture, the taps
+    # in their H x W shape, as grid_sample passes them (textured here, the
+    # inverse8 step's after phase 13), with the global atomics of the
+    # kernel's design, modeled, against a per-tap scatter's.
+
+    def b4_vs_plain(image, sv, svi, svt, stex, idx) -> dict:
+        n, hh, ww = idx.shape
+        t_h, t_w = stex.shape[2:]
+        fg = idx >= 0
+        n_fg = int(fg.sum())
+        with torch.no_grad():
+            _, bary0 = tt.render(sv, svi, idx)
+            uv = tt.interpolate(svt, svi, idx, bary0).movedim(1, -1) * 2.0 - 1.0
+        bx = torch.floor(gs._compute_source_index(uv[..., 0], t_w, "border", False)).int().clamp(0, t_w - 1)
+        by = torch.floor(gs._compute_source_index(uv[..., 1], t_h, "border", False)).int().clamp(0, t_h - 1)
+        k4 = 4 * stex.shape[1]  # the quad table's rows
+        cot = torch.randn((n, hh * ww, k4), generator=gen, device=dev) * fg.reshape(n, -1, 1)  # zero at background
+        iy = torch.where(fg, by, -1).reshape(n, -1)
+        ix = bx.reshape(n, -1)
+        rows_kp = cot.transpose(1, 2)  # the [N, K, P] view the row scatter passes
+        args = (rows_kp, iy, ix, t_h, t_w, (hh, ww))
+        got = window_accum._window_accumulate_cuda(*args)
+        want = window_accum._window_accumulate_plain(*args[:5])
+        magnitude = window_accum._window_accumulate_plain(rows_kp.abs(), *args[1:5])
+        lib_flat = ((by * t_w + bx) + torch.arange(n, device=dev)[:, None, None] * (t_h * t_w))[fg].long()
+        lib_rows = cot[fg.reshape(n, -1)].t().contiguous()
+
+        def library_b4():
+            return torch.zeros((k4, n * t_h * t_w), device=dev).index_add_(1, lib_flat, lib_rows)
 
         torch.cuda.synchronize()
         err = (got - want).abs()
-        # atomics reorder the sums: rtol 1e-5, atol 1e-6 of the summed magnitudes
         if not bool((err <= 1e-5 * want.abs() + 1e-6 * magnitude).all()):
-            raise AssertionError(f"B3 K={k_dim}: kernel differs from the plain scatter by {err.max().item()}")
-        if not bool(((library() - want[0]).abs() <= 1e-5 * want[0].abs() + 1e-6 * magnitude[0]).all()):
-            raise AssertionError(f"B3 K={k_dim}: the library yardstick computes another function")
-        nbytes = n_fg * k_dim * 4 + index_img.numel() * 4 + n_faces * k_dim * 4
-        b3[k_dim] = {
-            "ms": cuda_ms(lambda: segment_rows._scatter_rows_cuda(rows, index_img, n_faces), 50),
-            "device_ms": graph_ms(lambda: segment_rows._scatter_rows_cuda(rows, index_img, n_faces)),
-            "plain_ms": cuda_ms(lambda: segment_rows._scatter_rows_plain(rows, index_img, n_faces), 20),
-            "library_ms": cuda_ms(library, 50), "library_device_ms": graph_ms(library),
-            "library": "index_add_ of the foreground rows (the plain "
-            "version's core, without its masking)", "foreground_pixels": n_fg,
+            raise AssertionError(f"B4 {image}: kernel differs from the plain scatter by {err.max().item()}")
+        lib = library_b4().reshape(k4, n, t_h, t_w).movedim(0, 1)
+        if not bool(((lib - want).abs() <= 1e-5 * want.abs() + 1e-6 * magnitude).all()):
+            raise AssertionError(f"B4 {image}: the library yardstick computes another function")
+        nbytes = n_fg * k4 * 4 + iy.numel() * 4 + ix.numel() * 4 + n * k4 * t_h * t_w * 4
+        atomics = modeled_window_atomics(iy, ix, t_h, t_w, k4, (hh, ww))
+        rec = {
+            "K": k4, "batch": n, "taps": iy.numel(), "live_taps": n_fg, "rows_hw": [hh, ww], "table": [t_h, t_w],
+            "ms": cuda_ms(lambda: window_accum._window_accumulate_cuda(*args), 50),
+            "device_ms": graph_ms(lambda: window_accum._window_accumulate_cuda(*args)),
+            "plain_ms": cuda_ms(lambda: window_accum._window_accumulate_plain(*args[:5]), 20),
+            "library_ms": cuda_ms(library_b4, 50), "library_device_ms": graph_ms(library_b4),
+            "library": "index_add_ of the live taps' rows (the plain "
+            "version's core, without its masking)",
             "bytes": nbytes, "bound_ms": nbytes / bw * 1e3, "max_abs_err": err.max().item(),
+            "modeled_global_atomics": atomics, "modeled_per_tap_atomics": n_fg * k4,
+            "modeled_atomics_fall": n_fg * k4 / max(atomics, 1),
         }
-        emit({"phase": "B3 vs plain", "K": k_dim, **b3[k_dim]})
+        emit({"phase": "B4 vs plain", "image": image, **rec})
+        return rec
 
-    # 7. B4 vs plain on the taps of the fitting step's own grid_sample: the
-    # quad-row index of every pixel's bilinear border sample of the texture
-    _, bary0 = tt.render(v, vi, index_img)
-    uv = tt.interpolate(vt, vi, index_img, bary0).movedim(1, -1) * 2.0 - 1.0
-    t_h, t_w = tex.shape[2:]
-    bx = torch.floor(gs._compute_source_index(uv[..., 0], t_w, "border", False)).int().clamp(0, t_w - 1)
-    by = torch.floor(gs._compute_source_index(uv[..., 1], t_h, "border", False)).int().clamp(0, t_h - 1)
-    k4 = 4 * tex.shape[1]
-    cot = torch.randn((1, H * W, k4), generator=gen, device=dev) * fg.reshape(1, -1, 1)  # zero at background
-    iy = torch.where(fg, by, -1).reshape(1, -1)
-    ix = bx.reshape(1, -1)
-    rows_kp = cot.transpose(1, 2)  # the [N, K, P] view the row scatter passes
-    got = window_accum.window_accumulate(rows_kp, iy, ix, t_h, t_w)
-    want = window_accum._window_accumulate_plain(rows_kp, iy, ix, t_h, t_w)
-    magnitude = window_accum._window_accumulate_plain(rows_kp.abs(), iy, ix, t_h, t_w)
-    lib_flat = (by * t_w + bx)[fg].long()
-    lib_rows = cot[0][fg.reshape(-1)].t().contiguous()
-
-    def library_b4():
-        return torch.zeros((k4, t_h * t_w), device=dev).index_add_(1, lib_flat, lib_rows)
-
-    torch.cuda.synchronize()
-    err = (got - want).abs()
-    if not bool((err <= 1e-5 * want.abs() + 1e-6 * magnitude).all()):
-        raise AssertionError(f"B4: kernel differs from the plain scatter by {err.max().item()}")
-    lib_err = (library_b4().reshape(k4, t_h, t_w) - want[0]).abs()
-    if not bool((lib_err <= 1e-5 * want[0].abs() + 1e-6 * magnitude[0]).all()):
-        raise AssertionError("B4: the library yardstick computes another function")
-    nbytes = n_fg * k4 * 4 + iy.numel() * 4 + ix.numel() * 4 + k4 * t_h * t_w * 4
-    b4 = {
-        "K": k4, "taps": iy.numel(), "live_taps": n_fg, "table": [t_h, t_w],
-        "ms": cuda_ms(lambda: window_accum._window_accumulate_cuda(rows_kp, iy, ix, t_h, t_w), 50),
-        "device_ms": graph_ms(lambda: window_accum._window_accumulate_cuda(rows_kp, iy, ix, t_h, t_w)),
-        "plain_ms": cuda_ms(lambda: window_accum._window_accumulate_plain(rows_kp, iy, ix, t_h, t_w), 20),
-        "library_ms": cuda_ms(library_b4, 50), "library_device_ms": graph_ms(library_b4),
-        "library": "index_add_ of the live taps' rows (the plain "
-        "version's core, without its masking)",
-        "bytes": nbytes, "bound_ms": nbytes / bw * 1e3, "max_abs_err": err.max().item(),
-    }
-    emit({"phase": "B4 vs plain", **b4})
+    b4 = b4_vs_plain("textured", v, vi, vt, tex, index_img)
 
     # 8. The main path of this slice: the fitting step at full size, with
     # gradients to v, vt and tex, then bench_textured's v-only gradient.
@@ -673,6 +754,11 @@ def main() -> int:
         16: torch.from_numpy(rng.randn(INV_VIEWS, inv_vib.shape[1], 16).astype(np.float32)).to(dev),
     }, idx_k)
 
+    # 13c. B3 and B4 vs plain on the inverse8 step's index image and taps:
+    # 8 views of 512^2, 12,800 faces, the 3x256x256 texture.
+    b3_inv = b3_vs_plain("inverse8", idx_k, int(inv["vi"].shape[0]))
+    b4_inv = b4_vs_plain("inverse8", inv_v_pix, inv["vi"], inv["vt"].expand(INV_VIEWS, -1, -1), inv["tex_gt"], idx_k)
+
     # 14. The kernels, with the numbers of this run; times per fitting step
     # (B2: K=9 and K=6 in the forward, again in the backward, and K=16 in
     # edge_grad's backward; B3: K=9 in render's and edge_grad's backward,
@@ -684,6 +770,9 @@ def main() -> int:
 
     def b3_step(key):
         return 2 * b3[9][key] + b3[6][key]
+
+    def b3_inv_step(key):  # B3 at K=9 in render's and edge_grad's backward
+        return 2 * b3_inv[9][key]
 
     by_path = {"fit_step": main_launches, "inverse8_step": inv_launches, "wireframe": wire_launches}
 
@@ -712,15 +801,20 @@ def main() -> int:
         {"name": "B3 segment_rows._accumulate_kernel", "route": "cuda",
          "source": "drtk_tpu_torch/csrc/scatter_rows.cu", "replaces": "drtk_tpu/ops/segment_rows.py:129",
          "launches": main_launches["B3 scatter_rows"], "launches_per_step": 3,
-         "max_abs_err": max(b3[9]["max_abs_err"], b3[6]["max_abs_err"]),
+         "max_abs_err": max(r["max_abs_err"] for recs in (b3, b3_inv) for r in recs.values()),
          "ms": b3_step("ms"), "device_ms": b3_step("device_ms"), "plain_ms": b3_step("plain_ms"),
          "bound_ms": b3_step("bound_ms"), "bound_by": "bytes", "library_ms": b3_step("library_ms"),
-         "library_device_ms": b3_step("library_device_ms")},
+         "library_device_ms": b3_step("library_device_ms"),
+         "inverse8_step": {k: b3_inv_step(k) for k in b3_keys},
+         "per_launch": {image: {k_dim: {k: r[k] for k in b3_keys} for k_dim, r in recs.items()}
+                        for image, recs in (("textured", b3), ("inverse8", b3_inv))}},
         {"name": "B4 window_accum._window_kernel", "route": "cuda",
          "source": "drtk_tpu_torch/csrc/window_accum.cu", "replaces": "drtk_tpu/ops/window_accum.py:92",
-         "launches": main_launches["B4 window_accum"], "launches_per_step": 1, "max_abs_err": b4["max_abs_err"],
+         "launches": main_launches["B4 window_accum"], "launches_per_step": 1,
+         "max_abs_err": max(b4["max_abs_err"], b4_inv["max_abs_err"]),
          "ms": b4["ms"], "device_ms": b4["device_ms"], "plain_ms": b4["plain_ms"], "bound_ms": b4["bound_ms"],
-         "bound_by": "bytes", "library_ms": b4["library_ms"], "library_device_ms": b4["library_device_ms"]},
+         "bound_by": "bytes", "library_ms": b4["library_ms"], "library_device_ms": b4["library_device_ms"],
+         "inverse8_step": {k: b4_inv[k] for k in b3_keys}},
         {"name": "B5 rasterize_pallas._lines_tile_kernel", "route": "cuda",
          "source": "drtk_tpu_torch/csrc/rasterize_lines.cu", "replaces": "drtk_tpu/ops/rasterize_pallas.py:715",
          "launches": wire_launches["B5 rasterize_lines"], "launches_per_step": 1,

@@ -10,11 +10,13 @@ sums are elementwise products and adds, so no matrix unit or TF32 enters.
 Every texel fetch goes through :func:`~drtk_tpu_torch.ops.row_gather.row_gather`,
 so the texture gradient is its transpose, the row scatter (kernel B4 on the
 card, 12-float quad rows for a 3-channel bilinear texture), built only when
-the texture is differentiated. Autograd carries the rest: the grid gradient
-through the interpolation weights, and the quad table's shifted copies back
-onto the texture. At an exact clamp bound (a folded coordinate equal to 0
-or size - 1) ``torch.clamp`` passes the whole gradient where JAX's clip
-splits it 0.5/0.5; the parity tests keep their grids off those bounds.
+the texture is differentiated. Each fetch passes the sampling grid's
+(Hg, Wg) shape as ``rows_hw``, so B4 groups neighbouring pixels' taps.
+Autograd carries the rest: the grid gradient through the interpolation
+weights, and the quad table's shifted copies back onto the texture. At an
+exact clamp bound (a folded coordinate equal to 0 or size - 1)
+``torch.clamp`` passes the whole gradient where JAX's clip splits it
+0.5/0.5; the parity tests keep their grids off those bounds.
 """
 
 from __future__ import annotations
@@ -61,6 +63,13 @@ def _compute_source_index(
     return x
 
 
+def _tap_grid(coord: torch.Tensor):
+    """The (Hg, Wg) sampling grid that an [N, Hg, Wg] coordinate flattens to
+    its taps (``row_gather``'s ``rows_hw``); None, the flat order, for a grid
+    of another rank."""
+    return tuple(coord.shape[1:]) if coord.ndim == 3 else None
+
+
 def _gather_2d(img: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor, zero_fill: bool, impl: str) -> torch.Tensor:
     """img[n, :, iy, ix] -> [N, C, *S]. With ``zero_fill``, out-of-bounds
     taps give 0; otherwise the indices are assumed in range."""
@@ -69,7 +78,7 @@ def _gather_2d(img: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor, zero_fill:
     ixc = torch.clamp(ix, 0, w - 1)
     iyc = torch.clamp(iy, 0, h - 1)
     rows_img = img.movedim(1, -1).reshape(n, h * w, c)
-    out = row_gather(rows_img, (iyc * w + ixc).reshape(n, -1), (h, w), impl)  # [N, S, C]
+    out = row_gather(rows_img, (iyc * w + ixc).reshape(n, -1), (h, w), impl, _tap_grid(ix))  # [N, S, C]
     out = out.movedim(-1, 1).reshape((n, c) + tuple(ix.shape[1:]))
     if zero_fill:
         out = torch.where(inb[:, None], out, torch.zeros((), dtype=out.dtype, device=out.device))
@@ -128,7 +137,7 @@ def _grid_sample_impl(input, grid, mode, padding_mode, align_corners, impl):
         txy = torch.cat([ty1[:, :, 1:], torch.zeros_like(t[:, :, :1])], 2)
         quad = torch.cat([t, tx1, ty1, txy], -1).reshape(n, hq * wq, 4 * c)
 
-        rows = row_gather(quad, (by * wq + bx).reshape(n, -1), (hq, wq), impl)
+        rows = row_gather(quad, (by * wq + bx).reshape(n, -1), (hq, wq), impl, _tap_grid(by))
         rows = rows.reshape(tuple(ix0.shape) + (4, c))
 
         wts = [(1 - tx) * (1 - ty), tx * (1 - ty), (1 - tx) * ty, tx * ty]

@@ -13,16 +13,18 @@ The scatter drops rows that are zero in every channel, as the JAX package's
 ``live`` mask does (exact: they add nothing), then adds the rest at
 ``(iy, ix) = divmod(idx, table_w)`` with
 :func:`~drtk_tpu_torch.ops.window_accum.window_accumulate`, which is kernel
-B4 on a CUDA tensor.
+B4 on a CUDA tensor. ``rows_hw``, the image shape that the rows flatten,
+rides along to it as in the JAX package, so that B4's warps take
+neighbouring pixels.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from drtk_tpu_torch.ops.window_accum import window_accumulate
+from drtk_tpu_torch.ops.window_accum import _rows_hw, window_accumulate
 
 __all__ = ["row_gather"]
 
@@ -32,7 +34,7 @@ def _gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[torch.arange(n, device=table.device)[:, None], idx.long()]
 
 
-def _scatter(rows: torch.Tensor, idx: torch.Tensor, table_hw: Tuple[int, int], impl: str) -> torch.Tensor:
+def _scatter(rows: torch.Tensor, idx: torch.Tensor, table_hw, rows_hw, impl: str) -> torch.Tensor:
     """[N, P, K] rows summed into an [N, R, K] table (R = Ht * Wt) at
     ``idx``; all-zero rows are skipped."""
     n, p, k_dim = rows.shape
@@ -40,15 +42,15 @@ def _scatter(rows: torch.Tensor, idx: torch.Tensor, table_hw: Tuple[int, int], i
     live = (rows != 0).any(dim=-1)
     iy = torch.where(live, torch.div(idx, t_w, rounding_mode="floor"), -1).to(torch.int32)
     ix = torch.remainder(idx, t_w).to(torch.int32)
-    acc = window_accumulate(rows.transpose(1, 2), iy, ix, t_h, t_w, impl)  # [N, K, Ht, Wt]
+    acc = window_accumulate(rows.transpose(1, 2), iy, ix, t_h, t_w, impl, rows_hw)  # [N, K, Ht, Wt]
     return acc.reshape(n, k_dim, t_h * t_w).transpose(1, 2)
 
 
 class _RowGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, idx, table_hw, impl):
+    def forward(ctx, table, idx, table_hw, rows_hw, impl):
         ctx.save_for_backward(idx)
-        ctx.table_hw, ctx.impl = table_hw, impl
+        ctx.table_hw, ctx.rows_hw, ctx.impl = table_hw, rows_hw, impl
         return _gather(table, idx)
 
     @staticmethod
@@ -56,28 +58,32 @@ class _RowGather(torch.autograd.Function):
         (idx,) = ctx.saved_tensors
         grad_table = None
         if ctx.needs_input_grad[0]:
-            grad_table = _RowScatter.apply(grad_rows, idx, ctx.table_hw, ctx.impl)
-        return grad_table, None, None, None
+            grad_table = _RowScatter.apply(grad_rows, idx, ctx.table_hw, ctx.rows_hw, ctx.impl)
+        return grad_table, None, None, None, None
 
 
 class _RowScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, rows, idx, table_hw, impl):
+    def forward(ctx, rows, idx, table_hw, rows_hw, impl):
         ctx.save_for_backward(idx)
-        ctx.table_hw, ctx.impl = table_hw, impl
-        return _scatter(rows, idx, table_hw, impl)
+        ctx.table_hw, ctx.rows_hw, ctx.impl = table_hw, rows_hw, impl
+        return _scatter(rows, idx, table_hw, rows_hw, impl)
 
     @staticmethod
     def backward(ctx, grad_table):
         (idx,) = ctx.saved_tensors
         grad_rows = None
         if ctx.needs_input_grad[0]:
-            grad_rows = _RowGather.apply(grad_table, idx, ctx.table_hw, ctx.impl)
-        return grad_rows, None, None, None
+            grad_rows = _RowGather.apply(grad_table, idx, ctx.table_hw, ctx.rows_hw, ctx.impl)
+        return grad_rows, None, None, None, None
 
 
 def row_gather(
-    table: torch.Tensor, idx: torch.Tensor, table_hw: Tuple[int, int], impl: str = "auto"
+    table: torch.Tensor,
+    idx: torch.Tensor,
+    table_hw: Tuple[int, int],
+    impl: str = "auto",
+    rows_hw: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Gather ``table[n, idx[n, p], :]`` -> [N, P, K], differentiable in
     ``table`` (to any order).
@@ -89,6 +95,9 @@ def row_gather(
             into it at ``(idx // Wt, idx % Wt)``.
         impl: "auto" runs the backward scatter with kernel B4 on CUDA
             tensors; "plain" runs its plain version on any device.
+        rows_hw: the (H, W) image shape that P flattens (default (1, P)):
+            it gives the backward scatter its spatially coherent tap groups.
+            The result does not depend on it.
     """
     t_h, t_w = (int(s) for s in table_hw)
     if table.ndim != 3 or idx.ndim != 2 or idx.shape[0] != table.shape[0] or table.shape[1] != t_h * t_w:
@@ -96,12 +105,16 @@ def row_gather(
             f"row_gather: expected table [N, Ht*Wt, K] and idx [N, P] with (Ht, Wt) = {table_hw}, "
             f"got {tuple(table.shape)} and {tuple(idx.shape)}"
         )
-    return _RowGather.apply(table, idx, (t_h, t_w), impl)
+    return _RowGather.apply(table, idx, (t_h, t_w), _rows_hw(rows_hw, idx.shape[1]), impl)
 
 
 def _row_scatter(
-    rows: torch.Tensor, idx: torch.Tensor, table_hw: Tuple[int, int], impl: str = "auto"
+    rows: torch.Tensor,
+    idx: torch.Tensor,
+    table_hw: Tuple[int, int],
+    impl: str = "auto",
+    rows_hw: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """The transpose of :func:`row_gather`: [N, P, K] rows summed into an
     [N, Ht*Wt, K] table at ``idx``, differentiable in ``rows``."""
-    return _RowScatter.apply(rows, idx, tuple(int(s) for s in table_hw), impl)
+    return _RowScatter.apply(rows, idx, tuple(int(s) for s in table_hw), _rows_hw(rows_hw, idx.shape[1]), impl)

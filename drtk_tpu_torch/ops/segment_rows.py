@@ -10,9 +10,11 @@ Both are exact copies of the table rows, so the two agree bit for bit.
 same index, the reduction at the end of every VJP of render, interpolate and
 edge_grad. On a CUDA tensor it launches kernel B3
 (``csrc/scatter_rows.cu``); on a CPU tensor it runs
-:func:`_scatter_rows_plain`. B3 adds with atomics, whose order changes from
-run to run: its sums are not bit-reproducible (the JAX package's are) and
-agree with the plain version to float rounding, not bit for bit.
+:func:`_scatter_rows_plain`. B3 sums each 32 x 8 pixel tile's rows per
+distinct face on chip and adds the partials with atomics, whose order
+changes from run to run: its sums are not bit-reproducible (the JAX
+package's are) and agree with the plain version to float rounding, not bit
+for bit.
 """
 
 from __future__ import annotations
@@ -33,8 +35,8 @@ scatter_launches = 0
 _C_ENTRY = {torch.float32: "drtk_gather_rows_f32", torch.float64: "drtk_gather_rows_f64"}
 _C_SCATTER = {torch.float32: "drtk_scatter_rows_f32", torch.float64: "drtk_scatter_rows_f64"}
 _GATHER_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int32] * 4 + [ctypes.c_void_p]
-_SCATTER_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_int32] * 2 + [ctypes.c_void_p]
-_MAX_BATCH = 65535  # B2 takes the batch from blockIdx.y
+_SCATTER_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int32] * 5 + [ctypes.c_void_p]
+_MAX_BATCH = 65535  # B2 and B3 take the batch from blockIdx.y
 
 
 def _gather_rows_plain(table: torch.Tensor, index_img: torch.Tensor) -> torch.Tensor:
@@ -135,12 +137,17 @@ def _scatter_rows_cuda(rows: torch.Tensor, index_img: torch.Tensor, num_faces: i
     if rows.device != index_img.device:
         raise ValueError("scatter_rows_to_faces: rows and index_img are on different devices")
     n, h, w, k_dim = rows.shape
+    if n > _MAX_BATCH or num_faces >= 2**31:
+        raise ValueError(
+            f"scatter_rows_to_faces: the kernel takes at most {_MAX_BATCH} batches and F < 2**31, "
+            f"got N={n}, F={num_faces}"
+        )
     rows = rows.contiguous()
     index_img = index_img.contiguous()
     out = torch.zeros((n, num_faces, k_dim), dtype=rows.dtype, device=rows.device)
     fn = _build.entry("scatter_rows", _C_SCATTER[rows.dtype], _SCATTER_ARGTYPES)
     stream = torch.cuda.current_stream(rows.device).cuda_stream
-    err = fn(rows.data_ptr(), index_img.data_ptr(), out.data_ptr(), n, h * w, num_faces, k_dim, stream)
+    err = fn(rows.data_ptr(), index_img.data_ptr(), out.data_ptr(), n, h, w, num_faces, k_dim, stream)
     _build.check("scatter_rows", err, "scatter_rows kernel")
     scatter_launches += 1
     return out

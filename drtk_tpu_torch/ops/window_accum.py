@@ -3,18 +3,22 @@
 
 :func:`window_accumulate` adds per-tap rows into a 2-D table at each tap's
 (iy, ix). On a CUDA tensor it launches kernel B4 (``csrc/window_accum.cu``);
-on a CPU tensor it runs :func:`_window_accumulate_plain`. The JAX package's
-layout limits (an output of 8-row and 128-column multiples, taps blocked
-into spatially coherent runs, a fallback when a block overflows its window)
-come from its TPU design and do not apply: any table size and any tap order
-is taken. B4 adds with atomics, whose order changes from run to run: its
-sums are not bit-reproducible (the JAX package's are) and agree with the
-plain version to float rounding, not bit for bit.
+on a CPU tensor it runs :func:`_window_accumulate_plain`. As in the JAX
+package, the caller may give the taps their 2-D shape (``rows_hw``, the
+sampling grid that P flattens): a warp of B4 then takes an 8 x 4 patch of
+neighbouring taps, sums the taps that share a texel and adds each sum to the
+table once. The JAX package's layout limits (an output of 8-row and
+128-column multiples, padded tap blocks) come from its TPU design and do not
+apply: any table size and any tap order is taken. B4 adds with atomics,
+whose order changes from run to run: its sums are not bit-reproducible (the
+JAX package's are) and agree with the plain version to float rounding, not
+bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,9 +31,19 @@ launches = 0
 
 _C_ENTRY = {torch.float32: "drtk_window_accum_f32", torch.float64: "drtk_window_accum_f64"}
 _ARGTYPES = (
-    [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [ctypes.c_int32] + [ctypes.c_int64] * 3
-    + [ctypes.c_int32] * 2 + [ctypes.c_void_p]
+    [ctypes.c_void_p] * 4 + [ctypes.c_int32] * 4 + [ctypes.c_int64] * 3 + [ctypes.c_int32] * 2 + [ctypes.c_void_p]
 )
+_MAX_BATCH = 65535  # B4 takes the batch from blockIdx.y
+
+
+def _rows_hw(rows_hw: Optional[Tuple[int, int]], n_taps: int) -> Tuple[int, int]:
+    """The (H, W) tap grid, (1, P) by default; raises unless H * W == P."""
+    if rows_hw is None:
+        return 1, n_taps
+    t_h, t_w = (int(s) for s in rows_hw)
+    if t_h < 0 or t_w < 0 or t_h * t_w != n_taps:
+        raise ValueError(f"rows_hw {tuple(rows_hw)} does not flatten to {n_taps} taps")
+    return t_h, t_w
 
 
 def _window_accumulate_plain(rows, iy, ix, out_h: int, out_w: int) -> torch.Tensor:
@@ -45,7 +59,7 @@ def _window_accumulate_plain(rows, iy, ix, out_h: int, out_w: int) -> torch.Tens
     return out.reshape(k_dim, n, out_h, out_w).movedim(0, 1).contiguous()
 
 
-def _window_accumulate_cuda(rows, iy, ix, out_h: int, out_w: int) -> torch.Tensor:
+def _window_accumulate_cuda(rows, iy, ix, out_h: int, out_w: int, rows_hw=None) -> torch.Tensor:
     """Launch kernel B4 on the tensors' device and current stream. ``rows``
     is read through its strides, so a transposed view costs no copy."""
     global launches
@@ -56,6 +70,12 @@ def _window_accumulate_cuda(rows, iy, ix, out_h: int, out_w: int) -> torch.Tenso
     if not (rows.device == iy.device == ix.device):
         raise ValueError("window_accumulate: rows, iy and ix are on different devices")
     n, k_dim, p = rows.shape
+    r_h, r_w = _rows_hw(rows_hw, p)
+    if n > _MAX_BATCH or out_h * out_w >= 2**31:
+        raise ValueError(
+            f"window_accumulate: the kernel takes at most {_MAX_BATCH} batches and tables of fewer than "
+            f"2**31 texels, got N={n}, table {out_h}x{out_w}"
+        )
     iy = iy.contiguous()
     ix = ix.contiguous()
     out = torch.zeros((n, k_dim, out_h, out_w), dtype=rows.dtype, device=rows.device)
@@ -63,8 +83,8 @@ def _window_accumulate_cuda(rows, iy, ix, out_h: int, out_w: int) -> torch.Tenso
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     s_n, s_k, s_p = rows.stride()
     err = fn(
-        rows.data_ptr(), iy.data_ptr(), ix.data_ptr(), out.data_ptr(), n, p, k_dim,
-        s_n, s_k, s_p, out_h, out_w, stream,
+        rows.data_ptr(), iy.data_ptr(), ix.data_ptr(), out.data_ptr(), n, r_h, r_w, k_dim, s_n, s_k, s_p,
+        out_h, out_w, stream,
     )
     _build.check("window_accum", err, "window_accum kernel")
     launches += 1
@@ -78,6 +98,7 @@ def window_accumulate(
     out_h: int,
     out_w: int,
     impl: str = "auto",
+    rows_hw: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Accumulate ``rows`` at 2-D targets: ``out[n, k, iy[n, p], ix[n, p]]
     += rows[n, k, p]``.
@@ -91,6 +112,10 @@ def window_accumulate(
         impl: "auto" launches kernel B4 for CUDA tensors and runs the plain
             version for CPU tensors; "plain" runs the plain version on any
             device (the kernel's yardstick on the card).
+        rows_hw: the (H, W) grid that P flattens, row-major (default
+            (1, P), the flat order). It only groups neighbouring taps into
+            B4's warps; the result does not depend on it, and the plain
+            version ignores it.
 
     Returns:
         [N, K, out_h, out_w] of the rows' dtype. On the card the sums' order
@@ -104,8 +129,9 @@ def window_accumulate(
         )
     if out_h < 0 or out_w < 0:
         raise ValueError(f"window_accumulate: bad table size {out_h}x{out_w}")
+    _rows_hw(rows_hw, rows.shape[2])
     if impl == "plain" or (impl == "auto" and rows.device.type == "cpu"):
         return _window_accumulate_plain(rows, iy, ix, out_h, out_w)
     if impl == "auto" and rows.device.type == "cuda":
-        return _window_accumulate_cuda(rows, iy, ix, out_h, out_w)
+        return _window_accumulate_cuda(rows, iy, ix, out_h, out_w, rows_hw)
     raise ValueError(f"window_accumulate: impl {impl!r} on device {rows.device}")

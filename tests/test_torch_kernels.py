@@ -7,7 +7,10 @@ run them on the card with ``python -m pytest tests/test_torch_kernels.py
 kernels: the dispatch, the launch counts and the setup packing, the latter
 against numpy emulations of kernel B1's and kernel B5's algorithms (B1's
 tile bins, big list and per-tile resolve; B5's thread-to-(triangle, pixel)
-mapping), full frame and row tiles.
+mapping), full frame and row tiles; and numpy emulations of kernels B3
+(pixel tiles, runs of equal faces, per-tile face merge) and B4 (warp
+patches of taps, grouped by texel) against the plain versions, with the
+global atomics each issues held to the models that chip_smoke.py reports.
 
 Tolerances: kernel B2 copies table rows, so it must be bit-exact
 (torch.equal). Kernels B1 and B5 round every product, sum and quotient on
@@ -28,7 +31,9 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import drtk_tpu_torch as tt
+from drtk_tpu_torch.ops import grid_sample as gs
 from drtk_tpu_torch.ops import rasterize_cuda, segment_rows, window_accum
 from drtk_tpu_torch.ops.rasterize import (
     _canvas_cull,
@@ -38,6 +43,7 @@ from drtk_tpu_torch.ops.rasterize import (
     line_setup,
     triangle_setup,
 )
+from drtk_tpu_torch.ops.row_gather import row_gather
 from drtk_tpu_torch.pipeline import fit_step, inverse8_step, render_textured
 from drtk_tpu_torch.scenes import entry_scene_arrays, inverse8_scene_arrays, make_scene_arrays, with_edge_flags
 
@@ -380,6 +386,210 @@ def test_packed_lines_reproduce_plain_resolve(scene, viewport):
     np.testing.assert_array_equal(depth, d_ref.numpy())
 
 
+def _emulate_b3(rows, index_img, num_faces):
+    """numpy emulation of csrc/scatter_rows.cu: per 8 x 32 pixel tile of each
+    image, each tile row (a warp) is cut into runs of equal clamped faces
+    (background and the lanes past a ragged edge as -1); each foreground
+    run is summed, the runs' partials are merged per face in a table, and
+    each (tile, distinct face) adds its row to the output: one global
+    atomic per (tile, distinct face, k). Returns (out, global atomics)."""
+    n, h, w, k_dim = rows.shape
+    tile_h, tile_w = 8, 32  # kTileH x kTileW
+    out = np.zeros((n, num_faces, k_dim), rows.dtype)
+    atomics = 0
+    for b in range(n):
+        for y0 in range(0, h, tile_h):
+            for x0 in range(0, w, tile_w):
+                table = {}
+                for y in range(y0, min(y0 + tile_h, h)):
+                    faces = np.full(tile_w, -1, np.int64)
+                    run = index_img[b, y, x0 : x0 + tile_w]
+                    faces[: run.size] = np.where(run >= 0, np.minimum(run, num_faces - 1), -1)
+                    heads = np.flatnonzero(np.r_[True, faces[1:] != faces[:-1]])
+                    for start, end in zip(heads, np.r_[heads[1:], tile_w]):
+                        if faces[start] >= 0:
+                            part = rows[b, y, x0 + start : x0 + end].sum(0)
+                            table[faces[start]] = table.get(faces[start], 0) + part
+                for f, part in table.items():
+                    out[b, f] += part
+                atomics += len(table) * k_dim
+    return out, atomics
+
+
+def _rasterized(scene):
+    """The plain rasterizer's index image of a SCENES scene, and its face count."""
+    make, h, w = SCENES[scene]
+    s = make()
+    return tt.rasterize(torch.from_numpy(s["v"]), torch.from_numpy(s["vi"]), h, w).numpy(), s["vi"].shape[0]
+
+
+def _b3_index(case):
+    """B3's index images: "grid" the coherent grid scene (~240 px
+    triangles), "soup" random faces per pixel, "ragged" a 70x130 frame,
+    "batch3" three soups, "background" no face, "one_face" one face
+    everywhere, "clamped" faces up to F + 20 (clamped to F - 1)."""
+    rng = np.random.RandomState(5)
+    if case in ("grid", "ragged", "batch3"):
+        return _rasterized({"grid": "grid", "ragged": "nonaligned", "batch3": "soup_batch3"}[case])
+    if case == "soup":
+        return rng.randint(-1, 40, (2, 24, 70)).astype(np.int32), 40
+    if case == "clamped":
+        return rng.randint(-1, 60, (1, 16, 64)).astype(np.int32), 40
+    return np.full((1, 20, 40), -1 if case == "background" else 0, np.int32), 3
+
+
+@pytest.mark.parametrize("case", ["grid", "soup", "ragged", "batch3", "background", "one_face", "clamped"])
+def test_b3_emulation_matches_plain_and_counts_its_atomics(case):
+    """Kernel B3's algorithm (emulated in numpy) sums as the plain version
+    does (f64, 1e-12), and issues as many global atomics as there are
+    (tile, clamped foreground face) pairs times K, the count
+    chip_smoke.modeled_scatter_atomics reports for the card."""
+    index_img, num_faces = _b3_index(case)
+    k_dim = 5
+    rows = np.random.RandomState(6).randn(*index_img.shape, k_dim)
+    got, atomics = _emulate_b3(rows, index_img, num_faces)
+    rows_t, idx_t = torch.from_numpy(rows), torch.from_numpy(index_img)
+    want = segment_rows._scatter_rows_plain(rows_t, idx_t, num_faces)
+    magnitude = segment_rows._scatter_rows_plain(rows_t.abs(), idx_t, num_faces)
+    _magnitude_bound(torch.from_numpy(got), want, magnitude, torch.float64)
+    n, h, w = index_img.shape
+    tile_h, tile_w = chip_smoke.SCATTER_TILE
+    b, y, x = np.nonzero(index_img >= 0)
+    face = np.minimum(index_img[b, y, x], num_faces - 1)
+    direct = len({(bb, yy // tile_h, xx // tile_w, ff) for bb, yy, xx, ff in zip(b, y, x, face)}) * k_dim
+    assert atomics == direct == chip_smoke.modeled_scatter_atomics(idx_t, num_faces, k_dim)
+    per_pixel = b.size * k_dim
+    if case == "grid":  # coherent faces: the merge saves most of a per-pixel scatter's atomics
+        assert 4 * atomics <= per_pixel
+    if case in ("background", "one_face"):
+        assert atomics == (0 if case == "background" else -(-h // tile_h) * -(-w // tile_w) * k_dim)
+
+
+def _emulate_b4(rows, iy, ix, out_h, out_w, rows_hw):
+    """numpy emulation of csrc/window_accum.cu: the taps, on their rows_hw
+    grid, go in warp patches of 4 x 8 (1 x 32 on a grid of fewer than 8
+    rows); a patch's live
+    taps are grouped by texel, and each group's summed row is added to the
+    table once: one global atomic per (patch, distinct texel, k). Returns
+    (out, global atomics)."""
+    n, k_dim, _ = rows.shape
+    r_h, r_w = rows_hw
+    patch_h, patch_w = (4, 8) if r_h >= 8 else (1, 32)
+    out = np.zeros((n, k_dim, out_h, out_w), rows.dtype)
+    atomics = 0
+    for b in range(n):
+        for gy0 in range(0, r_h, patch_h):
+            for gx0 in range(0, r_w, patch_w):
+                gy, gx = np.meshgrid(np.arange(gy0, min(gy0 + patch_h, r_h)),
+                                     np.arange(gx0, min(gx0 + patch_w, r_w)), indexing="ij")
+                p = (gy * r_w + gx).ravel()
+                y, x = iy[b, p], ix[b, p]
+                live = (y >= 0) & (y < out_h) & (x >= 0) & (x < out_w)
+                groups = {}
+                for tap, texel in zip(p[live], zip(y[live], x[live])):
+                    groups[texel] = groups.get(texel, 0) + rows[b, :, tap]
+                for (ty, tx), row in groups.items():
+                    out[b, :, ty, tx] += row
+                atomics += len(groups) * k_dim
+    return out, atomics
+
+
+def _uv_taps(table_hw):
+    """Taps of the grid scene (128x256, ~240 px triangles): every pixel's
+    bilinear border base texel of a ``table_hw`` texture at its
+    interpolated uv, inert (iy = -1) at the background, whose uv carries
+    interpolate's sweep."""
+    s = make_scene_arrays(128, 256, 9)
+    v, vi, vt = (torch.from_numpy(s[k]) for k in ("v", "vi", "vt"))
+    idx = tt.rasterize(v, vi, 128, 256)
+    _, bary = tt.render(v, vi, idx)
+    uv = tt.interpolate(vt, vi, idx, bary) * 2.0 - 1.0
+    t_h, t_w = table_hw
+    bx = torch.floor(gs._compute_source_index(uv[:, 0], t_w, "border", False)).int().clamp(0, t_w - 1)
+    by = torch.floor(gs._compute_source_index(uv[:, 1], t_h, "border", False)).int().clamp(0, t_h - 1)
+    return torch.where(idx >= 0, by, -1).reshape(1, -1).numpy(), bx.reshape(1, -1).numpy()
+
+
+def _b4_taps(case, k_dim=12):
+    """B4's inputs: (rows [N, P, K], iy, ix, table (h, w), rows_hw).
+    "coherent": the grid scene's taps on a 64x64 texture (~8 taps a texel);
+    "scattered": random taps on a 200x300 table (~1 tap a texel);
+    "mixed": both in one batch; "flat": the coherent taps in the flat order
+    (warps of 32 consecutive taps); "ragged": a 13x37 tap grid with inert
+    and outside taps; "inert": no live tap."""
+    rng = np.random.RandomState(7)
+    if case in ("coherent", "flat", "mixed"):
+        iy, ix = _uv_taps((64, 64))
+        table, rows_hw = (64, 64), (128, 256)
+        if case == "mixed":
+            iy = np.concatenate([iy, rng.randint(-1, 64, iy.shape)]).astype(np.int32)
+            ix = np.concatenate([ix, rng.randint(0, 64, ix.shape)]).astype(np.int32)
+        rows_hw = None if case == "flat" else rows_hw
+    elif case == "scattered":
+        iy = rng.randint(-1, 200, (2, 16 * 64)).astype(np.int32)
+        ix = rng.randint(0, 300, (2, 16 * 64)).astype(np.int32)
+        table, rows_hw = (200, 300), (16, 64)
+    elif case == "ragged":
+        gy, gx = np.meshgrid(np.arange(13), np.arange(37), indexing="ij")
+        iy, ix = (gy // 2).reshape(1, -1).astype(np.int32), (gx // 3).reshape(1, -1).astype(np.int32)
+        iy[0, ::7] = -1
+        ix[0, 5::11] = 40  # past the table's 13 columns: dropped
+        table, rows_hw = (7, 13), (13, 37)
+    else:
+        iy = np.full((1, 512), -1, np.int32)
+        ix = rng.randint(-5000, 5000, (1, 512)).astype(np.int32)
+        table, rows_hw = (10, 10), (16, 32)
+    rows = rng.randn(iy.shape[0], iy.shape[1], k_dim)
+    return rows, iy, ix, table, rows_hw
+
+
+@pytest.mark.parametrize("case", ["coherent", "scattered", "mixed", "flat", "ragged", "inert"])
+def test_b4_emulation_matches_plain_and_counts_its_atomics(case):
+    """Kernel B4's algorithm (emulated in numpy) sums as the plain version
+    does (f64, 1e-12); it issues as many global atomics as
+    chip_smoke.modeled_window_atomics reports for the card, never more than one
+    per (live tap, k), and far fewer where neighbouring taps share texels."""
+    rows, iy, ix, (t_h, t_w), rows_hw = _b4_taps(case)
+    rows_kp = rows.transpose(0, 2, 1)
+    got, atomics = _emulate_b4(rows_kp, iy, ix, t_h, t_w, rows_hw or (1, iy.shape[1]))
+    args = (torch.from_numpy(iy), torch.from_numpy(ix), t_h, t_w)
+    want = window_accum._window_accumulate_plain(torch.from_numpy(rows_kp), *args)
+    magnitude = window_accum._window_accumulate_plain(torch.from_numpy(np.abs(rows_kp)), *args)
+    _magnitude_bound(torch.from_numpy(got), want, magnitude, torch.float64)
+    assert atomics == chip_smoke.modeled_window_atomics(*args, rows.shape[-1], rows_hw or (1, iy.shape[1]))
+    live = int(((iy >= 0) & (iy < t_h) & (ix >= 0) & (ix < t_w)).sum()) * rows.shape[-1]
+    assert atomics <= live
+    if case in ("coherent", "flat"):  # ~8 taps a texel: the warp's sums save most of a per-tap scatter's atomics
+        assert 3 * atomics <= live
+    if case == "scattered":
+        assert 10 * atomics >= 9 * live
+    if case == "inert":
+        assert atomics == 0
+
+
+def test_rows_hw_changes_no_result():
+    """row_gather and window_accumulate give the same results with and
+    without the taps' 2-D shape, forward and backward; a shape that does
+    not flatten to the taps raises."""
+    rows, iy, ix, (t_h, t_w), rows_hw = _b4_taps("coherent", k_dim=3)
+    rows_kp = torch.from_numpy(rows).transpose(1, 2)
+    iy_t, ix_t = torch.from_numpy(iy), torch.from_numpy(ix)
+    flat = window_accum.window_accumulate(rows_kp, iy_t, ix_t, t_h, t_w)
+    assert torch.equal(window_accum.window_accumulate(rows_kp, iy_t, ix_t, t_h, t_w, rows_hw=rows_hw), flat)
+    table = torch.from_numpy(np.random.RandomState(8).randn(1, t_h * t_w, 3)).requires_grad_()
+    idx = torch.from_numpy(np.clip(iy, 0, None) * t_w + ix).long()
+    grads = []
+    for hw in (None, rows_hw):
+        out = row_gather(table, idx, (t_h, t_w), rows_hw=hw)
+        (grad,) = torch.autograd.grad((out * torch.from_numpy(rows)).sum(), table)
+        grads.append((out, grad))
+    assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][1], grads[1][1])
+    with pytest.raises(ValueError, match="rows_hw"):
+        row_gather(table, idx, (t_h, t_w), rows_hw=(127, 256))
+    with pytest.raises(ValueError, match="rows_hw"):
+        window_accum.window_accumulate(rows_kp, iy_t, ix_t, t_h, t_w, rows_hw=(256, 256))
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
@@ -475,38 +685,63 @@ def _magnitude_bound(got, want, magnitude, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k_dim", [6, 9, 16])
+@pytest.mark.parametrize("image", ["random", "grid"])
+@pytest.mark.parametrize("k_dim", [1, 6, 9, 16, 42])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_scatter_kernel_matches_plain(cuda_device, k_dim, dtype):
+def test_scatter_kernel_matches_plain(cuda_device, k_dim, dtype, image):
+    """Random faces per pixel (batch 2, a 70x130 frame: ragged tiles), or
+    the grid scene's coherent index image, where a tile merges its pixels
+    into few faces; clamped and background indices in both. K = 42 takes
+    three channel chunks in f32 and six in f64."""
     rng = np.random.RandomState(k_dim)
-    n, f_cnt, h, w = 2, 300, 70, 130
-    rows = torch.from_numpy(rng.randn(n, h, w, k_dim)).to(dtype)
-    idx = torch.from_numpy(rng.randint(-1, f_cnt, (n, h, w)).astype(np.int32))
+    if image == "random":
+        f_cnt = 300
+        idx = torch.from_numpy(rng.randint(-1, f_cnt, (2, 70, 130)).astype(np.int32))
+    else:
+        idx_np, f_cnt = _rasterized("grid")
+        idx = torch.from_numpy(idx_np)
     idx[0, 0, :3] = torch.tensor([-5, f_cnt - 1, f_cnt + 7], dtype=torch.int32)
+    rows = torch.from_numpy(rng.randn(*idx.shape, k_dim)).to(dtype)
     want = segment_rows._scatter_rows_plain(rows, idx, f_cnt)
     magnitude = segment_rows._scatter_rows_plain(rows.abs(), idx, f_cnt)
     before = segment_rows.scatter_launches
     got = segment_rows.scatter_rows_to_faces(rows.to(cuda_device), idx.to(cuda_device), f_cnt)
     torch.cuda.synchronize()
     assert segment_rows.scatter_launches == before + 1
-    assert got.dtype == dtype and got.shape == (n, f_cnt, k_dim)
+    assert got.dtype == dtype and got.shape == (idx.shape[0], f_cnt, k_dim)
     _magnitude_bound(got.cpu(), want, magnitude, dtype)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("taps", ["random", "coherent", "mixed", "flat", "ragged"])
+@pytest.mark.parametrize("k_dim", [3, 12, 40])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_window_kernel_matches_plain(cuda_device, dtype):
-    rng = np.random.RandomState(3)
-    n, k_dim, p, out_h, out_w = 2, 12, 5000, 37, 61
-    rows_pk = torch.from_numpy(rng.randn(n, p, k_dim)).to(dtype)
-    iy = torch.from_numpy(rng.randint(-2, out_h + 2, (n, p)).astype(np.int32))  # inert and outside taps too
-    ix = torch.from_numpy(rng.randint(-2, out_w + 2, (n, p)).astype(np.int32))
+def test_window_kernel_matches_plain(cuda_device, dtype, k_dim, taps):
+    """Random taps (inert and outside ones too) in the flat order, and the
+    taps of _b4_taps: coherent ones with their 2-D shape, whose warps merge
+    many taps per texel, and in the flat order, a batch that mixes them with
+    scattered ones, and a ragged grid. K = 12 (a 3-channel texture's quad
+    rows) in f32 takes the compile-time kernel; K = 3 (nearest mode) the
+    run-time K with value-by-value staging, 40 four channel chunks in f32
+    and seven in f64."""
+    if taps == "random":
+        rng = np.random.RandomState(3)
+        n, p, out_h, out_w = 2, 5000, 37, 61
+        rows_pk = torch.from_numpy(rng.randn(n, p, k_dim)).to(dtype)
+        iy = torch.from_numpy(rng.randint(-2, out_h + 2, (n, p)).astype(np.int32))  # inert and outside taps too
+        ix = torch.from_numpy(rng.randint(-2, out_w + 2, (n, p)).astype(np.int32))
+        rows_hw = None
+    else:
+        rows, iy, ix, (out_h, out_w), rows_hw = _b4_taps(taps, k_dim)
+        rows_pk, iy, ix = torch.from_numpy(rows).to(dtype), torch.from_numpy(iy), torch.from_numpy(ix)
+    n, p, k_dim = rows_pk.shape
     want = window_accum._window_accumulate_plain(rows_pk.transpose(1, 2), iy, ix, out_h, out_w)
     magnitude = window_accum._window_accumulate_plain(rows_pk.abs().transpose(1, 2), iy, ix, out_h, out_w)
     before = window_accum.launches
     # the [N, P, K] rows as their [N, K, P] view, as the row scatter passes them
     got = window_accum.window_accumulate(
-        rows_pk.to(cuda_device).transpose(1, 2), iy.to(cuda_device), ix.to(cuda_device), out_h, out_w)
+        rows_pk.to(cuda_device).transpose(1, 2), iy.to(cuda_device), ix.to(cuda_device), out_h, out_w,
+        rows_hw=rows_hw)
     torch.cuda.synchronize()
     assert window_accum.launches == before + 1
     assert got.dtype == dtype and got.shape == (n, k_dim, out_h, out_w)
