@@ -24,9 +24,11 @@ index images (B4: the taps) of the textured scene and of the inverse8
 step's 8 views, B3 and B4 with the global atomics their designs imply
 (modeled from the index image or the taps, not counted on the card); triangle
 rasterization (B1), bit for bit, on the entry and textured scenes and on
-the views of the inverse8 step; wireframe rasterization (B5) on the entry,
-textured and inverse8 scenes; and row-tile viewports of B1 and B5 against
-the full frame. Times come from CUDA events: a kernel's ``ms`` (and
+the views of the inverse8 step; wireframe rasterization (B5), bit for bit,
+on the entry, textured and inverse8 scenes and on a scene of edges within
+ulps of the diamonds' reach (``near_miss_scene``), with the edge tests its
+rejects leave (modeled from the packed rows); and row-tile viewports of B1
+and B5 against the full frame. Times come from CUDA events: a kernel's ``ms`` (and
 ``plain_ms``, ``library_ms``) from back-to-back calls, which count the
 host's time per call when it is the longer; ``device_ms`` (and
 ``library_device_ms``) from replays of a CUDA graph of 20 calls, the time
@@ -61,9 +63,15 @@ WARMUP, STEPS = 3, 25
 PROFILED_STEPS = 5
 FLOPS_PER_TEST = 17  # per pixel centre tested by B1: 3 edges x (2 mul + 2 add), di 3 mul + 2 add
 INV_HW, INV_GN, INV_VIEWS = 512, 81, 8  # the inverse8 configuration (bench.py: bench_inverse8)
-# Per pixel tested by B5: 3 edges x 4, then clip, renormalise and di (3 mul, 3 x 2 clamp, 2 add, 3 div,
-# 3 mul, 2 add); per visible edge its line (2 sub, 2 mul, 1 sub) and four diamond sides of 16 (a2, b2:
-# 2 sub; c2, d: 2 x (2 mul + 1 sub); cx, cy: 2 x (2 mul + 1 sub + 1 div)), each division counted once.
+# B5's bound: what every design pays, three edge functions per window pixel (3 x (2 mul + 2 add)), and
+# bytes: the rows, meta and ends read once, 8 bytes of key written, updated and read by the unpack, and 8
+# bytes of depth and index written per output pixel.
+LINE_FLOOR_FLOPS_PER_TEST, LINE_BYTES_PER_PIXEL = 12, 3 * 8 + 8
+# The first B5 design's model of the full test, printed beside it (full_test_ops_ms), for comparison with
+# earlier runs that used it as the bound: per pixel 3 edges x 4, then clip,
+# renormalise and di (3 mul, 3 x 2 clamp, 2 add, 3 div, 3 mul, 2 add); per visible edge its line (2 sub,
+# 2 mul, 1 sub) and four diamond sides of 16 (a2, b2: 2 sub; c2, d: 2 x (2 mul + 1 sub); cx, cy: 2 x
+# (2 mul + 1 sub + 1 div)), each division counted once.
 LINE_FLOPS_PER_TEST, LINE_FLOPS_PER_EDGE = 12 + 19, 5 + 4 * 16
 CAMS = ("campos", "camrot", "focal", "princpt")
 
@@ -224,6 +232,116 @@ def modeled_window_atomics(iy: torch.Tensor, ix: torch.Tensor, out_h: int, out_w
     live = (iy >= 0) & (iy < out_h) & (ix >= 0) & (ix < out_w)
     key = (patch.expand(n, p)[live] * out_h + iy[live].long()) * out_w + ix[live].long()
     return int(torch.unique(key).numel()) * k_dim
+
+
+# Kernel B5's per-edge rejects (csrc/rasterize_lines.cu: edge_setup,
+# line_reach, edge_sides), copied in torch to model how many (pixel, edge)
+# side tests survive them; the kernel counts nothing. The CPU tests hold the
+# copy to a numpy emulation of the kernel.
+def b5_edge_sides(p1x, p1y, p2x, p2y, visible, window, px, py, stage: int) -> torch.Tensor:
+    """Bits 0-3: the diamond sides at pixel centres (px, py) on which the
+    edge (p1, p2) of a triangle with pixel window ``window`` (x_lo, x_hi,
+    y_lo, y_hi) is tested after the box reject (stage 1) and, from stage 2,
+    the line reject; at stage 3 the sides it is queued with (the box reject
+    left to the queue's lane where the line reject applies). None where the
+    edge is invisible, all four where a0, b0 or c0 is not finite. float32
+    tensors in, int32 out."""
+    x_lo, x_hi, y_lo, y_hi = window
+    a0, b0, c0 = p1y - p2y, p2x - p1x, p1x * p2y - p2x * p1y
+    finite = torch.isfinite(a0) & torch.isfinite(b0) & torch.isfinite(c0)
+    xl, xr, yt, yb = px - 0.5, px + 0.5, py - 0.5, py + 0.5
+    right = ~(((p1x < px) & (p2x < px)) | ((p1x > xr) & (p2x > xr)))
+    left = ~(((p1x < xl) & (p2x < xl)) | ((p1x > px) & (p2x > px)))
+    top = ~(((p1y < yt) & (p2y < yt)) | ((p1y > py) & (p2y > py)))
+    bottom = ~(((p1y < py) & (p2y < py)) | ((p1y > yb) & (p2y > yb)))
+    box = ((right & top).int() | (right & bottom).int() << 1 | (left & bottom).int() << 2
+           | (left & top).int() << 3)
+    sides = box
+    if stage >= 2:
+        m, c = torch.maximum(a0.abs(), b0.abs()), c0.abs()
+        guard = finite & (m <= 2.0**40) & (c <= 2.0**80) & (x_lo >= 1) & (y_lo >= 1) & (x_hi <= 2**22) & (y_hi <= 2**22)
+        for v in (a0.abs(), b0.abs(), c):
+            guard &= (v == 0) | (v >= 2.0**-100)
+        x, y = x_hi.float() + 0.5, y_hi.float() + 0.5
+        sxy, xy = x + y, x * y
+        e2 = 2.0**-22 * xy + 2.0**-24 * sxy
+        c2 = 0.5 * sxy + e2
+        two_m = 2.0 * m
+        r1 = (0.5 * m + two_m * (e2 + 2.0**-22 * sxy)) + 2.0**-22 * (m * sxy + c)
+        r2 = (two_m * 2.0**-22) * (two_m * c2 + c)
+        big_l = ((a0 * px + b0 * py) + c0).abs()
+        reach = [torch.where(d == 0, -1.0, (r1 + (1.0 / d) * r2) * (1 + 2.0**-18))
+                 for d in (0.5 * (a0 + b0).abs(), 0.5 * (a0 - b0).abs())]
+        if stage >= 3:  # the box reject left to the queue's lane where the line reject applies
+            sides = torch.where(guard, 0xF, box).int()
+        for r, pair in zip(reach, (0x5, 0xA)):
+            sides &= torch.where(guard & (big_l > r), 0xF & ~pair, 0xF).int()
+    return torch.where(visible, torch.where(finite, sides, 0xF), 0)
+
+
+B5_EDGES = ((9, 11), (11, 13), (9, 13))  # row offsets of the corners of edges (p0, p1), (p1, p2), (p0, p2)
+
+
+def modeled_edge_tests(rows: torch.Tensor, meta: torch.Tensor, ends: torch.Tensor, chunk: int = 1 << 22) -> dict:
+    """Per window pixel of kernel B5's launch: the visible edges, the
+    (pixel, edge) pairs and side tests left after stage 1's and stage 2's
+    rejects, and those stage 3 queues; a model from the packed rows, in
+    chunks of ``chunk`` pixels."""
+    total = int(ends[-1]) if ends.numel() else 0
+    flat_rows, flat_meta = rows.reshape(-1, rows.shape[-1]), meta.reshape(-1, meta.shape[-1]).long()
+    sums = dict.fromkeys(("visible", "edges_box", "edges_line", "edges_queued", "sides_box", "sides_line",
+                          "sides_queued"), 0)
+    for start in range(0, total, chunk):
+        t = torch.arange(start, min(total, start + chunk), device=ends.device)
+        i = torch.searchsorted(ends, t, right=True)
+        off = t - torch.where(i > 0, ends[(i - 1).clamp(min=0)], 0)
+        r, m = flat_rows[i], flat_meta[i]
+        cols = m[:, 2] - m[:, 1] + 1
+        px = (m[:, 1] + off % cols).float()
+        py = (m[:, 3] + off // cols).float()
+        window = (m[:, 1], m[:, 2], m[:, 3], m[:, 4])
+        for k, (a, b) in enumerate(B5_EDGES):
+            vis = (m[:, 0] >> (3 + k)) & 1 == 1
+            sums["visible"] += int(vis.sum())
+            for stage, name in ((1, "box"), (2, "line"), (3, "queued")):
+                sides = b5_edge_sides(r[:, a], r[:, a + 1], r[:, b], r[:, b + 1], vis, window, px, py, stage)
+                sums[f"edges_{name}"] += int((sides != 0).sum())
+                sums[f"sides_{name}"] += int(sum(((sides >> bit) & 1).sum() for bit in range(4)))
+    return {"window_pixels": total, **{k: v / max(total, 1) for k, v in sums.items()}}
+
+
+def near_miss_scene(h: int = 64, w: int = 128, seed: int = 0) -> dict:
+    """Triangles whose first edge passes a pixel's unit diamond at its reach:
+    through one of its corners, tangent to it a hair outside, or along one
+    of its sides, nearly parallel to it, each endpoint then moved up to two
+    ulps either way; the third corner lies 3-6 pixels off the edge. One
+    triangle per pixel centre on a 4-pixel grid, float32 ``v`` [1, 3F, 3]
+    and ``vi`` [F, 3] int32."""
+    rng = np.random.RandomState(seed)
+    corners = np.array([[0.5, 0.0], [0.0, 0.5], [-0.5, 0.0], [0.0, -0.5]])
+    side_mid = np.array([[0.25, -0.25], [0.25, 0.25], [-0.25, 0.25], [-0.25, -0.25]])
+    side_dir = np.array([[1.0, 1.0], [-1.0, 1.0], [-1.0, -1.0], [1.0, -1.0]]) / np.sqrt(2.0)
+    verts = []
+    for k, (py, px) in enumerate((py, px) for py in range(4, h - 4, 4) for px in range(4, w - 4, 4)):
+        kind, which = k % 3, (k // 3) % 4
+        if kind == 1:  # along a side, its direction turned by a hair
+            q = np.array([px, py]) + side_mid[which] + rng.choice([0.0, 1e-6, -1e-6]) * side_dir[which][::-1]
+            ang = np.arctan2(side_dir[which][1], side_dir[which][0]) + rng.choice([0.0, 1e-7, -1e-7, 1e-5])
+        else:  # through a corner (kind 0) or a hair outside it (kind 2)
+            q = np.array([px, py]) + corners[which] * (1.0 if kind == 0 else 1.0 + rng.uniform(1e-7, 1e-5))
+            ang = rng.uniform(0.0, np.pi)
+        d = np.array([np.cos(ang), np.sin(ang)])
+        p1, p2 = q - rng.uniform(1.0, 8.0) * d, q + rng.uniform(1.0, 8.0) * d
+        p3 = (p1 + p2) / 2 + rng.choice([-1.0, 1.0]) * rng.uniform(3.0, 6.0) * np.array([-d[1], d[0]])
+        tri = np.stack([p1, p2, p3]).astype(np.float32)
+        steps = rng.randint(-2, 3, (2, 2))
+        for j in range(2):
+            for c in range(2):
+                for _ in range(abs(steps[j, c])):
+                    tri[j, c] = np.nextafter(tri[j, c], np.float32(np.sign(steps[j, c]) * np.inf))
+        verts.append(np.concatenate([tri, rng.uniform(3.0, 9.0, (3, 1)).astype(np.float32)], axis=1))
+    v = np.concatenate(verts)[None].astype(np.float32)
+    return {"v": v, "vi": np.arange(v.shape[1], dtype=np.int32).reshape(-1, 3)}
 
 
 def main() -> int:
@@ -580,18 +698,23 @@ def main() -> int:
         emit(rec)
 
     # 10. B5 vs plain, every edge visible: the entry scene (canvas-sized
-    # triangles), the textured scene, and the inverse8 views through transform.
+    # triangles), the textured scene, the inverse8 views through transform,
+    # and the near-miss scene (edges at a diamond's reach and along its
+    # sides, to within ulps); bit for bit.
     inv = scene_from_numpy(inverse8_scene_arrays(INV_HW, INV_GN, INV_VIEWS), dev)
     cams = {k: inv[k] for k in CAMS}
     inv_vi_wire = torch.from_numpy(with_edge_flags(inv["vi"].cpu().numpy())).to(dev)
     with torch.no_grad():
         inv_v_pix = tt.transform(inv["v_world"].expand(INV_VIEWS, -1, -1), **cams)
     vi_wire = torch.from_numpy(with_edge_flags(vi.cpu().numpy())).to(dev)
+    near = near_miss_scene()
     b5 = {}
     for scene, (sv, svi, hh, ww) in {
         "entry": (entry[0], torch.from_numpy(with_edge_flags(entry[1].cpu().numpy())).to(dev), ENTRY_HW, ENTRY_HW),
         "textured": (v, vi_wire, H, W),
         "inverse8": (inv_v_pix, inv_vi_wire, INV_HW, INV_HW),
+        "near_miss": (torch.from_numpy(near["v"]).to(dev), torch.from_numpy(with_edge_flags(near["vi"])).to(dev),
+                      64, 128),
     }.items():
         svib = rast.broadcast_vi(svi, sv.shape[0])
         setup, lines = rast.triangle_setup(sv, svib), rast.line_setup(sv, svib)
@@ -601,28 +724,37 @@ def main() -> int:
         d_ref, i_ref = rast._rasterize_lines_plain(setup, lines, valid, hh, ww, 0, hh)
         torch.cuda.synchronize()
         rec = check_raster(f"B5 {scene}", d_ref, i_ref, d, i)
+        if not (torch.equal(d, d_ref) and torch.equal(i, i_ref)):
+            raise AssertionError(f"B5 {scene}: kernel not bit-identical to the plain wireframe resolve")
         if not bool((i >= 0).any()):
             raise AssertionError(f"B5 {scene}: no pixel indexed")
         m = meta.long()
         area = (m[..., 2] - m[..., 1] + 1).clamp(min=0) * (m[..., 4] - m[..., 3] + 1).clamp(min=0)
         n_vis = ((m[..., 0] >> 3) & 1) + ((m[..., 0] >> 4) & 1) + ((m[..., 0] >> 5) & 1)
         tests = int(ends[-1])
-        flops = int((area * (LINE_FLOPS_PER_TEST + LINE_FLOPS_PER_EDGE * n_vis)).sum())
-        nbytes = rows.numel() * 4 + meta.numel() * 4 + ends.numel() * 8 + d.numel() * (8 + 4 + 4)
-        bound_bytes_ms, bound_ops_ms = nbytes / bw * 1e3, flops / f32_flops * 1e3
+        full_flops = int((area * (LINE_FLOPS_PER_TEST + LINE_FLOPS_PER_EDGE * n_vis)).sum())
+        nbytes = rows.numel() * 4 + meta.numel() * 4 + ends.numel() * 8 + d.numel() * LINE_BYTES_PER_PIXEL
+        bound_bytes_ms = nbytes / bw * 1e3
+        bound_ops_ms = tests * LINE_FLOOR_FLOPS_PER_TEST / f32_flops * 1e3
+        model = modeled_edge_tests(rows, meta, ends)
         ms_runs = [cuda_ms(lambda: rasterize_cuda.resolve_lines_packed(rows, meta, ends, hh, ww), 20)
                    for _ in range(3)]
         rec.update({
-            "H": hh, "W": ww, "batch": int(sv.shape[0]), "faces": int(svib.shape[1]),
-            "bit_exact": bool(torch.equal(d, d_ref) and torch.equal(i, i_ref)),
+            "H": hh, "W": ww, "batch": int(sv.shape[0]), "faces": int(svib.shape[1]), "bit_exact": True,
             "indexed_pixels": int((i >= 0).sum()), "depth_only_pixels": int(((i < 0) & (d > 0)).sum()),
             "ms": statistics.median(ms_runs), "ms_runs": ms_runs,
             "device_ms": graph_ms(lambda: rasterize_cuda.resolve_lines_packed(rows, meta, ends, hh, ww)),
             "plain_ms": cuda_ms(lambda: rast._rasterize_lines_plain(setup, lines, valid, hh, ww, 0, hh), 2, warmup=1),
             "rasterize_call_ms": cuda_ms(lambda: tt.rasterize_with_depth(sv, svi, hh, ww, wireframe=True), 20),
-            "pixel_tests": tests, "flops": flops, "bytes": nbytes,
+            "pixel_tests": tests, "flops": tests * LINE_FLOOR_FLOPS_PER_TEST, "bytes": nbytes,
             "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-            "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations", "library_ms": None,
+            "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+            "full_test_flops": full_flops, "full_test_ops_ms": full_flops / f32_flops * 1e3, "library_ms": None,
+            # a model from the packed rows (modeled_edge_tests), not a count from the kernel
+            "modeled_edge_tests_per_pixel": {
+                "before_reject": model["visible"], "after_box": model["edges_box"],
+                "after_box_and_line": model["edges_line"], "queued_by_stage_3": model["edges_queued"],
+                "side_tests_after_box_and_line": model["sides_line"]},
         })
         b5[scene] = rec
         emit({"phase": "B5 vs plain", "scene": scene, **rec})
@@ -820,7 +952,8 @@ def main() -> int:
          "launches": wire_launches["B5 rasterize_lines"], "launches_per_step": 1,
          "max_abs_err": b5["inverse8"]["max_abs_depth_err"], "ms": b5["inverse8"]["ms"],
          "device_ms": b5["inverse8"]["device_ms"], "plain_ms": b5["inverse8"]["plain_ms"], "bound_ms": b5["inverse8"]["bound_ms"],
-         "bound_by": b5["inverse8"]["bound_by"], "library_ms": None},
+         "bound_by": b5["inverse8"]["bound_by"], "full_test_ops_ms": b5["inverse8"]["full_test_ops_ms"],
+         "library_ms": None},
     ]
     for row, key in zip(kernels, ("B1 rasterize", "B2 gather_rows", "B3 scatter_rows", "B4 window_accum",
                                   "B5 rasterize_lines")):

@@ -198,11 +198,17 @@ def resolve_lines_packed(
     rows: torch.Tensor, meta: torch.Tensor, ends: torch.Tensor, height: int, width: int, y_offset: int = 0
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel B5 on packed wireframe rows; returns (depth f32, index
-    i32), each [N, H, W], rows [y_offset, y_offset + height) of the frame."""
+    i32), each [N, H, W], rows [y_offset, y_offset + height) of the frame.
+    Raises ``ValueError`` before it allocates when H*W >= 2**31."""
     global lines_launches
     n, f_cnt = _check_rows("rasterize_lines_cuda", rows, meta, LINE_FLOATS, LINE_INTS)
     if ends.dtype != torch.int64 or ends.shape != (n * f_cnt,) or ends.device != rows.device:
         raise ValueError("rasterize_lines_cuda: ends must be int64 [N*F] beside the rows")
+    if height * width >= 2**31:
+        raise ValueError(
+            f"rasterize_lines_cuda: the kernel's in-window offsets are 32-bit, so H*W must stay below 2**31, "
+            f"got {height}x{width}"
+        )
     dev = rows.device
     keys = torch.empty((n, height, width), dtype=torch.int64, device=dev)
     depth = torch.empty((n, height, width), dtype=torch.float32, device=dev)

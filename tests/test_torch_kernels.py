@@ -6,17 +6,22 @@ run them on the card with ``python -m pytest tests/test_torch_kernels.py
 -m cuda -q``. The unmarked tests hold, on the CPU, what surrounds the
 kernels: the dispatch, the launch counts and the setup packing, the latter
 against numpy emulations of kernel B1's and kernel B5's algorithms (B1's
-tile bins, big list and per-tile resolve; B5's thread-to-(triangle, pixel)
-mapping), full frame and row tiles; and numpy emulations of kernels B3
-(pixel tiles, runs of equal faces, per-tile face merge) and B4 (warp
-patches of taps, grouped by texel) against the plain versions, with the
-global atomics each issues held to the models that chip_smoke.py reports.
+tile bins, big list and per-tile resolve; B5's lanes' walk to each
+(triangle, pixel), its box and line rejects at each compile-time stage and
+its warp queue), full frame and row tiles; a property test (hypothesis) that
+B5's rejects never drop a side the full test accepts; and numpy emulations
+of kernels B3 (pixel tiles, runs of equal faces, per-tile face merge) and
+B4 (warp patches of taps, grouped by texel) against the plain versions,
+with the global atomics each issues held to the models that chip_smoke.py
+reports (and B5's surviving edge tests to its torch model).
 
 Tolerances: kernel B2 copies table rows, so it must be bit-exact
 (torch.equal). Kernels B1 and B5 round every product, sum and quotient on
 its own in the plain version's order, so they should match the plain
 version exactly, and a row tile the full frame's rows (asserted exactly;
-B1 against the plain resolve too); the other assertions against the plain
+B1 against the plain resolve too, B5 on the near-miss and 4096-wide
+scenes, whose edges lie within ulps of a diamond's reach or at
+coordinates up to 4096); the other assertions against the plain
 version allow the rasterizer's documented tie rule (index flips
 only at pixels whose two depths agree to 1e-4 relative, fewer than 1e-3 of
 the pixels; depth to rtol 1e-4 / atol 1e-6). Kernels B3 and B4 add with
@@ -30,6 +35,8 @@ do the inverse8 step's, to the world vertices and the texture.
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import chip_smoke
 import drtk_tpu_torch as tt
@@ -116,10 +123,33 @@ NO_LAUNCHES = {
 }
 
 
+def _wide_scene(clusters=8, per_cluster=32, h=64, w=4096, seed=3):
+    """A few hundred triangles of up to ~60 pixels in 8 clusters across a
+    4096-wide canvas (one cluster per chunk of the plain version), so that
+    coordinates reach 4096 while the windows stay small."""
+    rng = np.random.RandomState(seed)
+    centres = np.linspace(40, w - 40, clusters).repeat(per_cluster)[:, None, None]
+    xy = np.concatenate([centres, rng.uniform(0, h, (clusters * per_cluster, 1, 1))], -1)
+    xy = xy + rng.uniform(-30, 30, (clusters * per_cluster, 3, 2))
+    z = rng.uniform(3.0, 9.0, (clusters * per_cluster, 3, 1))
+    v = np.concatenate([xy, z], -1).reshape(1, -1, 3).astype(np.float32)
+    return {"v": v, "vi": np.arange(3 * clusters * per_cluster, dtype=np.int32).reshape(-1, 3)}
+
+
+# Wireframe-only scenes: edges at a diamond's reach and nearly parallel to
+# its sides, to within ulps (chip_smoke.near_miss_scene), and coordinates
+# up to 4096.
+LINE_SCENES = {
+    "near_miss": (lambda: chip_smoke.near_miss_scene(64, 128), 64, 128),
+    "wide4096": (_wide_scene, 64, 4096),
+}
+B5_SCENES = ["soup_batch3", "nonaligned", "grid", "entry", *LINE_SCENES]
+
+
 def _wire(scene):
-    """A scene of SCENES with every edge visible, and per-face partial flags
-    on the soups."""
-    make, h, w = SCENES[scene]
+    """A scene of SCENES or LINE_SCENES with every edge visible, and
+    per-face partial flags on the soups."""
+    make, h, w = {**SCENES, **LINE_SCENES}[scene]
     s = make()
     flags = np.arange(s["vi"].shape[0]) % 7 + 1 if scene.startswith("soup") else 0x7
     return {**s, "vi": with_edge_flags(s["vi"], flags)}, h, w
@@ -303,27 +333,73 @@ def test_b1_bins_reach_both_lists(scene):
         assert img[40, 47] in (0, 1) and img[40, 48] == 2
 
 
-def _emulate_b5(rows, meta, ends, h, w, y_offset=0):
-    """numpy emulation of csrc/rasterize_lines.cu: thread t takes the first
-    triangle whose running window-area sum exceeds t and the pixel
-    t - (the sum before it) of its window, row-major; every product, sum and
-    quotient is rounded on its own in float32; the smallest packed key
-    (~float_bits(di) << 32) | id wins, id INT32_MAX where no edge crosses."""
-    n, f_cnt, _ = rows.shape
-    f32 = np.float32
-    t = np.arange(int(ends[-1]) if ends.size else 0, dtype=np.int64)
-    i = np.searchsorted(ends, t, side="right")
-    off = t - np.concatenate([[0], ends])[i]
-    r, m = rows.reshape(-1, rows.shape[-1])[i], meta.reshape(-1, meta.shape[-1])[i].astype(np.int64)
-    cols = m[:, 2] - m[:, 1] + 1
-    y, x = m[:, 3] + off // cols, m[:, 1] + off % cols
-    px, py = x.astype(f32), y.astype(f32)
-    e = [(r[:, k] * px + r[:, 3 + k] * py) + r[:, 6 + k] for k in range(3)]
-    inside = np.ones(t.shape, bool)
-    for k in range(3):
-        inside &= (e[k] > 0) | ((e[k] == 0) & (m[:, 0] >> k & 1 == 1))
+def _b5_edge_setup(p1x, p1y, p2x, p2y, visible, window, stage=3):
+    """Kernel B5's load_tri for one edge, numpy float32 op for op: the
+    edge's corners and line (a0, b0, c0), whether they are finite, and from
+    stage 2 whether the line reject's guard holds and its thresholds on |L|
+    over the window (x_lo, x_hi, y_lo, y_hi, int arrays)."""
+    f = np.float32
+    x_lo, x_hi, y_lo, y_hi = (np.asarray(v) for v in window)
+    with np.errstate(all="ignore"):
+        a0, b0, c0 = p1y - p2y, p2x - p1x, p1x * p2y - p2x * p1y
+        finite = np.isfinite(a0) & np.isfinite(b0) & np.isfinite(c0)
+        m, c = np.maximum(np.abs(a0), np.abs(b0)), np.abs(c0)
+        guard = finite & (stage >= 2) & (m <= f(2.0**40)) & (c <= f(2.0**80))
+        guard &= (x_lo >= 1) & (y_lo >= 1) & (x_hi <= 2**22) & (y_hi <= 2**22)
+        for a in (np.abs(a0), np.abs(b0), c):
+            guard &= (a == 0) | (a >= f(2.0**-100))
+        x, y = x_hi.astype(f) + f(0.5), y_hi.astype(f) + f(0.5)
+        s, xy = x + y, x * y
+        e2 = f(2.0**-22) * xy + f(2.0**-24) * s
+        c2 = f(0.5) * s + e2
+        two_m = f(2) * m
+        r1 = (f(0.5) * m + two_m * (e2 + f(2.0**-22) * s)) + f(2.0**-22) * (m * s + c)
+        r2 = (two_m * f(2.0**-22)) * (two_m * c2 + c)
+        reach = [np.where(d == 0, f(-1), (r1 + (f(1) / d) * r2) * f(1 + 2.0**-18)).astype(f)
+                 for d in (f(0.5) * np.abs(a0 + b0), f(0.5) * np.abs(a0 - b0))]
+    return {"visible": np.asarray(visible), "finite": finite, "corners": (p1x, p1y, p2x, p2y),
+            "line": (a0, b0, c0), "guard": guard, "reach": reach}
 
-    def diamond(p1x, p1y, p2x, p2y):
+
+def _b5_box_sides(p1x, p1y, p2x, p2y, px, py):
+    """Kernel B5's box_sides (the box reject, exact by construction): bit s
+    set where diamond side s's box meets the segment's, for finite corners."""
+    h = np.float32(0.5)
+    xl, xr, yt, yb = px - h, px + h, py - h, py + h
+    min_x, max_x, min_y, max_y = np.minimum(p1x, p2x), np.maximum(p1x, p2x), np.minimum(p1y, p2y), np.maximum(p1y, p2y)
+    right = ~((max_x < px) | (min_x > xr))
+    left = ~((max_x < xl) | (min_x > px))
+    top = ~((max_y < yt) | (min_y > py))
+    bottom = ~((max_y < py) | (min_y > yb))
+    return ((right & top) * 1 | (right & bottom) * 2 | (left & bottom) * 4 | (left & top) * 8).astype(np.int32)
+
+
+def _b5_edge_sides(e, px, py, stage=3):
+    """Kernel B5's edge_sides, then at stage 3 the queue lane's box reject:
+    (the sides the owner lane keeps, the sides tested), bits in
+    diamond_crossing's order. None where the edge is invisible, all four
+    where a line coefficient is not finite; else those past the line reject
+    (stage 2 on, where its guard holds) and the box reject (at stage 3 in
+    the queue's lane where the line reject applied)."""
+    a0, b0, c0 = e["line"]
+    with np.errstate(all="ignore"):
+        big_l = np.abs((a0 * px + b0 * py) + c0)
+        box = _b5_box_sides(*e["corners"], px, py)
+    line = e["guard"]
+    sides = np.full(np.broadcast(big_l, px).shape, 0xF, np.int32)
+    sides &= np.where(line & (big_l > e["reach"][0]), ~np.int32(5), -1).astype(np.int32)
+    sides &= np.where(line & (big_l > e["reach"][1]), ~np.int32(10), -1).astype(np.int32)
+    kept = np.where((stage < 3) | ~line, sides & box, sides)
+    kept = np.where(e["visible"], np.where(e["finite"], kept, 0xF), 0).astype(np.int32)
+    tested = np.where(e["finite"], kept & box, kept).astype(np.int32)
+    return kept, tested
+
+
+def _b5_side_hits(p1x, p1y, p2x, p2y, px, py):
+    """The four diamond-side tests of diamond_crossing, [4, ...] bool, every
+    product, sum and quotient rounded in float32."""
+    f32 = np.float32
+    with np.errstate(all="ignore"):
         a0, b0, c0 = p1y - p2y, p2x - p1x, p1x * p2y - p2x * p1y
 
         def in_seg(ax, ay, bx, by, cx, cy):
@@ -333,57 +409,362 @@ def _emulate_b5(rows, meta, ends, h, w, y_offset=0):
         def side(s0x, s0y, s1x, s1y):
             a2, b2, c2 = s0y - s1y, s1x - s0x, s0x * s1y - s1x * s0y
             d = a0 * b2 - a2 * b0
-            with np.errstate(divide="ignore", invalid="ignore"):
-                cx = np.where(d == 0, np.finfo(f32).max, (b0 * c2 - b2 * c0) / d).astype(f32)
-                cy = np.where(d == 0, np.finfo(f32).max, (a2 * c0 - a0 * c2) / d).astype(f32)
+            cx = np.where(d == 0, np.finfo(f32).max, (b0 * c2 - b2 * c0) / d).astype(f32)
+            cy = np.where(d == 0, np.finfo(f32).max, (a2 * c0 - a0 * c2) / d).astype(f32)
             return in_seg(s0x, s0y, s1x, s1y, cx, cy) & in_seg(p1x, p1y, p2x, p2y, cx, cy)
 
-        h_ = f32(0.5)
-        return (side(px, py - h_, px + h_, py) | side(px + h_, py, px, py + h_)
-                | side(px, py + h_, px - h_, py) | side(px - h_, py, px, py - h_))
+        h = f32(0.5)
+        return np.stack([side(px, py - h, px + h, py), side(px + h, py, px, py + h),
+                         side(px, py + h, px - h, py), side(px - h, py, px, py - h)])
 
-    cross = np.zeros(t.shape, bool)
-    for bit, (a, b) in ((3, (9, 11)), (4, (11, 13)), (5, (9, 13))):
-        cross |= (m[:, 0] >> bit & 1 == 1) & diamond(r[:, a], r[:, a + 1], r[:, b], r[:, b + 1])
+
+B5_EDGES = ((9, 11), (11, 13), (9, 13))  # the corners (row offsets) of edges (p0, p1), (p1, p2), (p0, p2)
+
+
+def _emulate_b5(rows, meta, ends, h, w, y_offset=0, stage=3, warps=4224):
+    """numpy emulation of csrc/rasterize_lines.cu built with DRTK_B5_STAGE =
+    ``stage``: the lanes' walk (:func:`_b5_walk`) to each thread number's
+    triangle (the first whose running window-area sum exceeds it) and pixel,
+    row-major in its window; each visible edge tested on the sides its
+    rejects leave (stage 1 the boxes, 2 also the line distance). Every
+    product, sum and quotient is rounded on its own in float32; the smallest
+    packed key (~float_bits(di) << 32) | id wins, id INT32_MAX where no edge
+    crosses. At stage 3 inside pixels write their interior key, and the
+    (pixel, edge) pairs left to test go to the warp's queue, from which a
+    crossed one writes the crossing key.
+    Returns (depth, index, counts): window pixels, seeks, visible edges, the
+    (pixel, edge) pairs tested and their sides, and at stage 3 the warp
+    steps, the runs (``warps`` of them, one wave of 4 blocks of 8 warps on
+    132 SMs by default), the queued pairs and the queue's passes of up to
+    32 pairs."""
+    n, f_cnt, _ = rows.shape
+    f32 = np.float32
+    total = int(ends[-1]) if ends.size else 0
+    t = np.arange(total, dtype=np.int64)
+    i, x, y, seeks = _b5_walk(meta.reshape(-1, meta.shape[-1]), ends, per_warp(total, warps))
+    r, m = rows.reshape(-1, rows.shape[-1])[i], meta.reshape(-1, meta.shape[-1])[i]
+    px, py = x.astype(f32), y.astype(f32)
+    e = [(r[:, k] * px + r[:, 3 + k] * py) + r[:, 6 + k] for k in range(3)]
+    inside = np.ones(t.shape, bool)
+    for k in range(3):
+        inside &= (e[k] > 0) | ((e[k] == 0) & (m[:, 0] >> k & 1 == 1))
+
+    queued, sides = [], []
+    for k, (a, b) in enumerate(B5_EDGES):
+        setup = _b5_edge_setup(r[:, a], r[:, a + 1], r[:, b], r[:, b + 1], m[:, 0] >> (3 + k) & 1 == 1,
+                               (m[:, 1], m[:, 2], m[:, 3], m[:, 4]), stage)
+        kept, tested = _b5_edge_sides(setup, px, py, stage)
+        queued.append(kept != 0)
+        sides.append(tested)
+    pairs = [s != 0 for s in sides]
+    counts = {
+        "window_pixels": total,
+        **seeks,
+        "visible_edges": int(sum(int((m[:, 0] >> (3 + k) & 1).sum()) for k in range(3))),
+        "edge_tests": int(sum(int(p.sum()) for p in pairs)),
+        "side_tests": int(sum(int((s >> b & 1).sum()) for s in sides for b in range(4))),
+    }
+    hits = []
+    for k, (a, b) in enumerate(B5_EDGES):
+        side_hits = _b5_side_hits(r[:, a], r[:, a + 1], r[:, b], r[:, b + 1], px, py)
+        hits.append(((side_hits & ((sides[k] >> np.arange(4)[:, None]) & 1 == 1)).any(0)) & pairs[k])
+    cross = hits[0] | hits[1] | hits[2]
     b = [np.minimum(np.maximum(ek * r[:, 18], f32(0)), f32(1)) for ek in e]
     bs = (b[0] + b[1]) + b[2]
     with np.errstate(divide="ignore", invalid="ignore"):
         di = ((b[0] / bs) * r[:, 15] + (b[1] / bs) * r[:, 16]) + (b[2] / bs) * r[:, 17]
-    write = inside | cross
-    bits = di.astype(f32).view(np.uint32) & np.uint32(0x7FFFFFFF)
-    ids = np.where(cross, i % f_cnt, 0x7FFFFFFF).astype(np.uint64)
-    key = ((~bits).astype(np.uint64) << np.uint64(32)) | ids
-    keys = np.full(n * h * w, np.iinfo(np.uint64).max, np.uint64)
+    bits = (~(di.astype(f32).view(np.uint32) & np.uint32(0x7FFFFFFF))).astype(np.uint64) << np.uint64(32)
     flat = ((i // f_cnt) * h + (y - y_offset)) * w + x
-    np.minimum.at(keys, flat[write], key[write])
+    interior = bits | np.uint64(0x7FFFFFFF)
+    crossed = bits | (i % f_cnt).astype(np.uint64)
+    keys = np.full(n * h * w, np.iinfo(np.uint64).max, np.uint64)
+    if stage < 3:
+        write = inside | cross
+        np.minimum.at(keys, flat[write], np.where(cross, crossed, interior)[write])
+    else:
+        # Owners write interior keys; the queue's pairs, in push order (per
+        # step of 32: edge 0's pairs by lane, then edge 1's, edge 2's), are
+        # tested 32 to a pass along each warp's run, and a crossed pair
+        # writes its pixel's key with the triangle's id.
+        np.minimum.at(keys, flat[inside], interior[inside])
+        for k in range(3):
+            np.minimum.at(keys, flat[hits[k]], crossed[hits[k]])
+        run = t // per_warp(total, warps)
+        n_runs = int(run[-1]) + 1 if total else 0
+        per_run = sum(np.bincount(run, q, n_runs) for q in queued).astype(np.int64)
+        counts.update(warp_steps=-(-total // 32), runs=n_runs, queued=int(per_run.sum()),
+                      queue_passes=int((-(-per_run // 32)).sum()))
     keys = keys.reshape(n, h, w)
     written = keys != np.iinfo(np.uint64).max
     ids = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     di = (~(keys >> np.uint64(32)).astype(np.uint32)).view(np.float32)
     depth = np.where(written, f32(1) / np.maximum(di, f32(1e-8)), f32(0))
-    return depth, np.where(written & (ids != 0x7FFFFFFF), ids.astype(np.int32), -1)
+    return depth, np.where(written & (ids != 0x7FFFFFFF), ids.astype(np.int32), -1), counts
 
 
-@pytest.mark.parametrize("viewport", VIEWPORTS)
-@pytest.mark.parametrize("scene", ["soup_batch3", "nonaligned", "grid", "entry"])
-def test_packed_lines_reproduce_plain_resolve(scene, viewport):
-    """What kernel B5 computes from pack_lines' rows (emulated in numpy)
-    equals the plain wireframe resolve bit for bit, in a row tile too."""
+def _b5_walk(meta, ends, run):
+    """Kernel B5's walk: each warp takes ``run`` consecutive thread numbers,
+    lane j numbers j, j + 32, ...; a lane binary-searches its first
+    triangle, then steps 32 on in its window (rows32 rows and cols32
+    columns, one wrap at most) or seeks a later window (8 triangles one by
+    one, then a binary search), finding its row and column with one
+    division. Returns the triangle, x and y of every thread number, held to
+    a direct search and division, and the lane seeks and the warp steps in
+    which some lane seeks."""
+    total = int(ends[-1]) if ends.size else 0
+    out_i, out_x, out_y = (np.zeros(total, np.int64) for _ in range(3))
+    starts = np.concatenate([[0], ends])
+    cols_of = (meta[:, 2] - meta[:, 1] + 1).astype(np.int32)
+    seeks = seek_steps = 0
+    for begin in range(0, total, run):
+        t = begin + np.arange(32)
+        end = min(begin + run, total)
+        live = t < end
+        i = np.searchsorted(ends, np.where(live, t, 0), side="right")
+        off = (t - starts[i]).astype(np.int32)
+        row, col = off // cols_of[i], off % cols_of[i]
+        seeks += int(live.sum())
+        seek_steps += 1
+        while live.any():
+            tl = t[live]
+            out_i[tl], out_x[tl], out_y[tl] = i[live], meta[i[live], 1] + col[live], meta[i[live], 3] + row[live]
+            t = t + 32
+            live = t < end
+            same = live & (t < ends[i])
+            w_cols = cols_of[i]
+            col = col + np.where(same, 32 % w_cols, 0)
+            row = row + np.where(same, 32 // w_cols, 0) + (same & (col >= w_cols))
+            col = np.where(same & (col >= w_cols), col - w_cols, col)
+            moved = live & ~same
+            seek_steps += bool(moved.any())
+            if moved.any():
+                i = np.where(moved, np.searchsorted(ends, np.where(live, t, 0), side="right"), i)
+                off = np.where(moved, t - starts[i], 0).astype(np.int32)
+                row = np.where(moved, off // cols_of[i], row)
+                col = np.where(moved, off % cols_of[i], col)
+                seeks += int(moved.sum())
+    i = np.searchsorted(ends, np.arange(total), side="right")
+    off = np.arange(total) - starts[i]
+    assert (off < 2**31).all()
+    np.testing.assert_array_equal(out_i, i)
+    np.testing.assert_array_equal(out_x, meta[i, 1] + off % cols_of[i])
+    np.testing.assert_array_equal(out_y, meta[i, 3] + off // cols_of[i])
+    return out_i, out_x, out_y, {"seeks": seeks, "seek_steps": seek_steps}
+
+
+def per_warp(total, warps):
+    """The thread numbers each warp of B5 walks: total/warps rounded up to
+    a multiple of 32."""
+    return max(32, -(-(-(-total // warps)) // 32) * 32)
+
+
+def _packed_lines(scene, y0=0, hb=None):
+    """pack_lines' rows of a wireframe scene for rows [y0, y0 + hb), with
+    the setup, the canvas cull and the frame's height and width."""
     s, h, w = _wire(scene)
-    y0, hb = viewport
-    hb = hb or h
     v = torch.from_numpy(s["v"])
     vi = broadcast_vi(torch.from_numpy(s["vi"]), v.shape[0])
     setup, lines = triangle_setup(v, vi), line_setup(v, vi)
     valid = _canvas_cull(setup, h, w)
-    rows, meta, ends = rasterize_cuda.pack_lines(setup, lines, valid, hb, w, y0, h)
+    rows, meta, ends = rasterize_cuda.pack_lines(setup, lines, valid, hb or h, w, y0, h)
+    return rows, meta, ends, (setup, lines, valid), h, w
+
+
+@pytest.mark.parametrize("viewport", VIEWPORTS)
+@pytest.mark.parametrize("scene", B5_SCENES)
+def test_packed_lines_reproduce_plain_resolve(scene, viewport):
+    """What kernel B5 computes from pack_lines' rows (emulated in numpy, as
+    built, DRTK_B5_STAGE 3) equals the plain wireframe resolve bit for bit,
+    in a row tile too."""
+    y0, hb = viewport
+    rows, meta, ends, (setup, lines, valid), h, w = _packed_lines(scene, y0, hb)
+    hb = hb or h
     assert rows.shape[-1] == rasterize_cuda.LINE_FLOATS and meta.shape[-1] == rasterize_cuda.LINE_INTS
-    assert ends.dtype == torch.int64 and ends.shape == (v.shape[0] * vi.shape[1],)
-    depth, index = _emulate_b5(rows.numpy(), meta.numpy(), ends.numpy(), hb, w, y0)
+    assert ends.dtype == torch.int64 and ends.shape == (rows.shape[0] * rows.shape[1],)
+    depth, index, _ = _emulate_b5(rows.numpy(), meta.numpy(), ends.numpy(), hb, w, y0)
     d_ref, i_ref = _rasterize_lines_plain(setup, lines, valid, hb, w, y0, h)
     assert (i_ref >= 0).any() and ((i_ref < 0) & (d_ref > 0)).any()
     np.testing.assert_array_equal(index, i_ref.numpy())
     np.testing.assert_array_equal(depth, d_ref.numpy())
+
+
+@pytest.mark.parametrize("stage", [1, 2])
+@pytest.mark.parametrize("scene", B5_SCENES)
+def test_b5_stages_reproduce_plain_resolve(scene, stage):
+    """Kernel B5 built with DRTK_B5_STAGE 1 (box reject) or 2 (box and line
+    rejects, no compaction), emulated: bit for bit the plain resolve."""
+    rows, meta, ends, (setup, lines, valid), h, w = _packed_lines(scene)
+    depth, index, _ = _emulate_b5(rows.numpy(), meta.numpy(), ends.numpy(), h, w, stage=stage)
+    d_ref, i_ref = _rasterize_lines_plain(setup, lines, valid, h, w, 0, h)
+    np.testing.assert_array_equal(index, i_ref.numpy())
+    np.testing.assert_array_equal(depth, d_ref.numpy())
+
+
+def _inverse8_lines(h=128, gn=21, views=2):
+    """pack_lines' rows of the inverse8 scene's views through transform, at
+    the full scene's triangle size in pixels (~5.5 px grid cells)."""
+    a = inverse8_scene_arrays(h, gn, views)
+    cams = {k: torch.from_numpy(a[k]) for k in ("campos", "camrot", "focal", "princpt")}
+    v = tt.transform(torch.from_numpy(a["v_world"]).expand(views, -1, -1), **cams)
+    vi = broadcast_vi(torch.from_numpy(with_edge_flags(a["vi"])), views)
+    setup, lines = triangle_setup(v, vi), line_setup(v, vi)
+    valid = _canvas_cull(setup, h, h)
+    return rasterize_cuda.pack_lines(setup, lines, valid, h, h, 0, h), h
+
+
+def test_b5_rejects_cut_the_edge_tests_on_inverse8():
+    """On the inverse8 views, the (pixel, edge) pairs left to the side tests
+    per window pixel, out of 3 visible edges: at most 1.3 after the box
+    reject, at most 0.3 after the line reject; a warp seeks new triangles
+    in at most two steps per window boundary; stage 3's queue takes them in far
+    fewer passes than one per step; and chip_smoke.py's torch model of the
+    rejects counts what the emulation does."""
+    (rows, meta, ends), h = _inverse8_lines()
+    counts = {stage: _emulate_b5(rows.numpy(), meta.numpy(), ends.numpy(), h, h, stage=stage, warps=64)[2]
+              for stage in (1, 2, 3)}
+    pixels = counts[1]["window_pixels"]
+    assert counts[1]["visible_edges"] == 3 * pixels
+    assert counts[1]["edge_tests"] <= 1.3 * pixels
+    assert counts[2]["edge_tests"] <= 0.3 * pixels
+    assert counts[3]["edge_tests"] == counts[2]["edge_tests"]
+    # a warp steps into a new window in at most two steps per window boundary
+    windows = int((np.diff(np.concatenate([[0], ends.numpy()])) > 0).sum())
+    assert counts[3]["seek_steps"] <= 2 * windows + counts[3]["runs"]
+    # stage 3 queues the (pixel, edge) pairs past the line reject, and tests
+    # them in a pass of 32 per 3 steps of 32 pixels or fewer
+    assert counts[2]["edge_tests"] <= counts[3]["queued"] <= 0.5 * pixels
+    assert counts[3]["queue_passes"] <= counts[3]["warp_steps"] / 3
+    assert counts[3]["queue_passes"] <= counts[3]["warp_steps"] / 3
+    model = chip_smoke.modeled_edge_tests(rows, meta, ends, chunk=1 << 14)
+    assert model["window_pixels"] == pixels and model["visible"] == 3.0
+    for stage, name in ((1, "box"), (2, "line")):
+        assert model[f"edges_{name}"] * pixels == counts[stage]["edge_tests"]
+        assert model[f"sides_{name}"] * pixels == counts[stage]["side_tests"]
+    assert model["edges_queued"] * pixels == counts[3]["queued"]
+
+
+def _ulps(x, steps=(-2, -1, 0, 1, 2)):
+    """float32 x moved by each of ``steps`` ulps."""
+    x = np.float32(x)
+    out = []
+    for k in steps:
+        y = x
+        for _ in range(abs(k)):
+            y = np.nextafter(y, np.float32(np.copysign(np.inf, k)))
+        out.append(y)
+    return np.array(out, np.float32)
+
+
+def _b5_sides_at(args, stage, wide=False):
+    """edge_sides for segments and pixels ``args`` (float32 arrays, p1x p1y
+    p2x p2y px py) of a visible edge whose window ends at the pixel, or
+    with ``wide`` at 4094 (its thresholds then hold for a larger window)."""
+    p1x, p1y, p2x, p2y, px, py = args
+    x, y = px.astype(np.int64), py.astype(np.int64)
+    hi = (np.maximum(x, 4094), np.maximum(y, 4094)) if wide else (x, y)
+    setup = _b5_edge_setup(p1x, p1y, p2x, p2y, True, (np.ones_like(x), hi[0], np.ones_like(y), hi[1]), stage)
+    return _b5_edge_sides(setup, px, py, stage)[1]
+
+
+def _assert_reject_keeps_every_hit(p1x, p1y, p2x, p2y, px, py):
+    """Every (edge, pixel, side) that the full side test accepts survives
+    the rejects of stages 1, 2 (thresholds from the pixel's own window and
+    from a wider one) and 3; returns the accepted count."""
+    args = np.broadcast_arrays(*(np.asarray(a, np.float32) for a in (p1x, p1y, p2x, p2y, px, py)))
+    hits = _b5_side_hits(*args)
+    for stage, wide in ((1, False), (2, False), (2, True), (3, False)):
+        kept = (_b5_sides_at(args, stage, wide)[None] >> np.arange(4).reshape(4, *[1] * args[0].ndim)) & 1 == 1
+        assert not (hits & ~kept).any(), f"stage {stage} rejects a side the full test accepts"
+    return int(hits.sum())
+
+
+def _near_segment(px, py, q, direction, lengths):
+    """Segment through q along ``direction`` with the given lengths either
+    side, every endpoint coordinate moved by -2..2 ulps (625 variants)."""
+    d = np.asarray(direction, np.float64) / np.hypot(*direction)
+    p1 = np.asarray(q) - lengths[0] * d
+    p2 = np.asarray(q) + lengths[1] * d
+    grids = np.meshgrid(_ulps(p1[0]), _ulps(p1[1]), _ulps(p2[0]), _ulps(p2[1]), indexing="ij")
+    return [g.ravel() for g in grids] + [np.float32(px), np.float32(py)]
+
+
+_PIXEL = st.tuples(st.integers(1, 4094), st.integers(1, 4094))
+_LENGTHS = st.tuples(st.floats(0.0, 40.0), st.floats(0.0, 40.0))
+_CORNERS = [(0.5, 0.0), (0.0, 0.5), (-0.5, 0.0), (0.0, -0.5)]
+_SIDES = [((0.25, -0.25), (1.0, 1.0)), ((0.25, 0.25), (-1.0, 1.0)), ((-0.25, 0.25), (-1.0, -1.0)),
+          ((-0.25, -0.25), (1.0, -1.0))]
+
+
+@st.composite
+def _reach_segments(draw):
+    """Through a diamond corner, or a hair outside or inside it."""
+    (px, py), corner = draw(_PIXEL), draw(st.sampled_from(_CORNERS))
+    scale = 1.0 + draw(st.sampled_from([0.0, 1e-7, -1e-7, 1e-6, -1e-6, 1e-4, -1e-4]))
+    ang = draw(st.floats(0.0, np.pi))
+    q = (px + corner[0] * scale, py + corner[1] * scale)
+    return _near_segment(px, py, q, (np.cos(ang), np.sin(ang)), draw(_LENGTHS))
+
+
+@st.composite
+def _parallel_segments(draw):
+    """Along a diamond side, turned and moved by a hair."""
+    (px, py), (mid, direction) = draw(_PIXEL), draw(st.sampled_from(_SIDES))
+    turn = draw(st.sampled_from([0.0, 1e-7, -1e-7, 1e-6, -1e-5])) + draw(st.floats(-1e-6, 1e-6))
+    shift = draw(st.floats(-1e-5, 1e-5))
+    ang = np.arctan2(direction[1], direction[0]) + turn
+    q = (px + mid[0] - shift * direction[1], py + mid[1] + shift * direction[0])
+    return _near_segment(px, py, q, (np.cos(ang), np.sin(ang)), draw(_LENGTHS))
+
+
+@st.composite
+def _degenerate_segments(draw):
+    """Zero-length, or axis-aligned through or beside the diamond."""
+    (px, py) = draw(_PIXEL)
+    q = (px + draw(st.sampled_from([0.0, 0.5, -0.5, 0.25])), py + draw(st.sampled_from([0.0, 0.5, -0.5, 0.25])))
+    direction = draw(st.sampled_from([(1.0, 0.0), (0.0, 1.0), (1.0, 1.0)]))
+    lengths = draw(st.sampled_from([(0.0, 0.0), (0.0, 3.0), (2.0, 2.0)]))
+    return _near_segment(px, py, q, direction, lengths)
+
+
+_WILD = st.one_of(st.floats(-5000.0, 5000.0, width=32),
+                  st.sampled_from([np.inf, -np.inf, np.nan, 1e30, -1e30, 3.4e38, -3.4e38, 1e-30, 0.0, 2.0**-120]))
+
+
+@st.composite
+def _wild_segments(draw):
+    """Huge, tiny and non-finite endpoint coordinates."""
+    (px, py) = draw(_PIXEL)
+    return [np.float32(draw(_WILD)) for _ in range(4)] + [np.float32(px), np.float32(py)]
+
+
+@pytest.mark.parametrize("segments", [_reach_segments, _parallel_segments, _degenerate_segments, _wild_segments],
+                         ids=["reach", "parallel", "degenerate", "wild"])
+def test_b5_reject_never_drops_a_crossing(segments):
+    """Property: kernel B5's rejects (numpy copies, float32 rounded op by op,
+    float64 where the kernel uses double) never drop a diamond side that the
+    full side test accepts; drawn at pixels up to 4094, with segments at a
+    corner of the diamond's reach, nearly parallel to a side, degenerate,
+    and with huge or non-finite coordinates, each within +-2 ulps."""
+
+    @settings(max_examples=150, deadline=None, database=None, derandomize=True)
+    @given(segments())
+    def check(args):
+        _assert_reject_keeps_every_hit(*args)
+
+    check()
+
+
+def test_b5_rejects_are_exercised():
+    """The property test's constructions reach accepted sides and rejected
+    ones: a segment through a diamond corner is crossed at some ulp
+    variants, and one 2.7 pixels away, whose box holds the pixel, passes
+    the box reject and fails the line reject on every side."""
+    args = _near_segment(100, 200, (100.5, 200.0), (1.0, 2.0), (5.0, 5.0))
+    assert _assert_reject_keeps_every_hit(*args) > 0
+    far = _near_segment(100, 200, (103.0, 200.0), (1.0, -2.0), (10.0, 10.0))  # its box holds the pixel
+    far = np.broadcast_arrays(*(np.asarray(a, np.float32) for a in far))
+    assert (_b5_sides_at(far, 2) == 0).all()
+    assert (_b5_sides_at(far, 1) != 0).any()
 
 
 def _emulate_b3(rows, index_img, num_faces):
@@ -769,8 +1150,10 @@ def test_fit_step_kernels_match_plain(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scene", ["soup_batch3", "nonaligned", "grid", "entry"])
+@pytest.mark.parametrize("scene", B5_SCENES)
 def test_lines_kernel_matches_plain(cuda_device, scene):
+    """Kernel B5 against the plain wireframe resolve; on the near-miss and
+    4096-wide scenes bit for bit."""
     s, h, w = _wire(scene)
     v = torch.from_numpy(s["v"]).to(cuda_device)
     vi = torch.from_numpy(s["vi"]).to(cuda_device)
@@ -781,6 +1164,21 @@ def test_lines_kernel_matches_plain(cuda_device, scene):
     d_ref, i_ref = tt.rasterize_with_depth(v, vi, h, w, wireframe=True, impl="plain")
     assert bool((i >= 0).any())
     _assert_raster_match(d_ref, i_ref, d, i)
+    if scene in LINE_SCENES:
+        assert torch.equal(i, i_ref) and torch.equal(d, d_ref)
+
+
+@pytest.mark.cuda
+def test_lines_kernel_raises_past_32_bit_windows(cuda_device):
+    """B5's in-window offsets are 32-bit: the wrapper refuses H*W >= 2**31
+    before it allocates anything."""
+    rows = torch.zeros((1, 1, rasterize_cuda.LINE_FLOATS), device=cuda_device)
+    meta = torch.zeros((1, 1, rasterize_cuda.LINE_INTS), dtype=torch.int32, device=cuda_device)
+    ends = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    allocated = torch.cuda.memory_allocated(cuda_device)
+    with pytest.raises(ValueError, match="32-bit"):
+        rasterize_cuda.resolve_lines_packed(rows, meta, ends, 65536, 65536)
+    assert torch.cuda.memory_allocated(cuda_device) == allocated
 
 
 @pytest.mark.cuda
