@@ -44,35 +44,33 @@
 //
 // The crossing test is where the work is: 4 sides x 3 edges with two IEEE
 //   divisions each, and almost no pixel is crossed. Before it, per visible
-//   edge and pixel (the stages, chosen at compile time by DRTK_B5_STAGE):
-//   1. a bounding-box reject per side, exact by construction;
-//   2. a line-distance reject per pair of parallel sides, against a
-//      threshold per triangle with the rounding margin proved below;
-//   3. the surviving (pixel, edge) pairs go to a queue of the warp in
-//      shared memory (ballot, popc), and each time it holds 32 they are
-//      tested one per lane; a lane whose pair is crossed writes the pixel's
-//      key itself. (Compacting within one step of 32 pixels fills a pass
-//      with ~5 pairs on the inverse8 frame; the queue fills it with 32.)
-//      At this stage the box reject runs on the queue's lanes, after the
-//      cheaper line reject.
+//   edge and pixel:
+//   - a line-distance reject per pair of parallel sides, against a
+//     threshold per triangle with the rounding margin proved below;
+//   - the surviving (pixel, edge) pairs go to a queue of the warp in shared
+//     memory (ballot, popc), and each time it holds 32 they are tested one
+//     per lane; a lane whose pair is crossed writes the pixel's key itself.
+//     (Compacting within one step of 32 pixels fills a pass with ~5 pairs
+//     on the inverse8 frame; the queue fills it with 32.)
+//   - on the queue's lane, a bounding-box reject per side, exact by
+//     construction, before the side tests. Where the line reject does not
+//     apply (see its guard) the box reject runs on the owner lane instead.
 //   A skipped side test is one that would have returned false, so the
-//   result is the plain version's bit for bit at every stage.
+//   result is the plain version's bit for bit.
 //
-// Bound on this card: what every design pays is to read the rows, meta and
-//   ends and write 8 bytes of key, depth and index per pixel (bytes), or to
-//   evaluate three edge functions per window pixel (operations); at the
-//   inverse8 frame's shapes (8 x 512^2, 12,800 triangles, ~40 M window
-//   pixels) the bytes set it, ~0.023 ms. The time goes to instructions: per
-//   window pixel the walk, the inside test and the line reject, per inside
-//   pixel its key, and per queued pair the box reject and the side tests.
+// Bound on this card: what the function needs is to read the rows, meta
+//   and ends once and write 8 bytes of depth and index per pixel (bytes),
+//   and to evaluate three edge functions per window pixel (operations); at
+//   the inverse8 frame's shapes (8 x 512^2, 12,800 triangles, ~40 M window
+//   pixels) the bytes set it, ~0.008 ms. The key buffer (24 bytes per
+//   pixel with its memset and unpack) is this design's own. The time goes
+//   to instructions: per window pixel the walk, the inside test and the
+//   line reject, per inside pixel its key, and per queued pair the box
+//   reject and the side tests.
 
 #include <cfloat>
 #include <cstdint>
 #include <cuda_runtime.h>
-
-#ifndef DRTK_B5_STAGE
-#define DRTK_B5_STAGE 3
-#endif
 
 namespace {
 
@@ -132,8 +130,8 @@ __device__ bool diamond_crossing(float p1x, float p1y, float p2x, float p2y,
 }
 
 // What a lane keeps of its current triangle between steps: the edge
-// functions for the inside test, the corners, and per edge stage 2's
-// thresholds.
+// functions for the inside test, the corners, and per edge the line
+// reject's thresholds.
 struct Tri {
   int32_t i = -1;
   // top-left 0-2, visible 3-5, a non-finite line coefficient 6-8, the line
@@ -165,7 +163,7 @@ __device__ __forceinline__ bool normal_or_zero(float v) {
   return a == 0.f || (a >= 0x1p-100f && a <= FLT_MAX);
 }
 
-// Stage 2's thresholds: the pair of sides (0, 2) or (1, 3) is skipped at a
+// The line reject's thresholds: the pair of sides (0, 2) or (1, 3) is skipped at a
 // pixel of the window where |L| = |(a0*px + b0*py) + c0|, rounded op by op
 // in float, exceeds reach[0] or reach[1]. Returns whether the guard below
 // holds; where it does not, no threshold is set and nothing is skipped.
@@ -233,7 +231,7 @@ __device__ __forceinline__ bool line_reach(float a0, float b0, float c0, int32_t
   return true;
 }
 
-// Stage 1, exact by construction: the sides of the diamond at (px, py),
+// The box reject, exact by construction: the sides of the diamond at (px, py),
 // bits 0-3 in diamond_crossing's order, whose boxes meet the segment's. A
 // side accepts only a computed point c with in_seg(s0, s1, c) and
 // in_seg(p1, p2, c), so c lies in the side's box ([px, xr] or [xl, px] by
@@ -257,16 +255,14 @@ __device__ __forceinline__ uint32_t box_sides(float p1x, float p1y, float p2x, f
 // The sides of the diamond at (px, py) left to test on edge k, bits 0-3:
 // none where the edge is invisible, all four where a line coefficient is
 // not finite (load_tri sets their lines and thresholds so), else those that
-// pass the line reject (stage 2 on; an infinite threshold where it does not
-// apply) and the box reject. Stage 3 leaves the box reject to the queue's
-// lane wherever the line reject applies, since it costs more than the
-// line's.
-template <int kStage>
+// pass the line reject. Where the line reject applies, the box reject is
+// left to the queue's lane, since it costs more than the line's; where it
+// does not (an infinite threshold), the box reject runs here.
 __device__ __forceinline__ uint32_t edge_sides(const Tri& tri, int k, float px, float py) {
   const float l = fabsf(__fadd_rn(__fadd_rn(__fmul_rn(tri.line[k][0], px), __fmul_rn(tri.line[k][1], py)),
                                   tri.line[k][2]));
   uint32_t sides = (l > tri.reach[k][0] ? 0xAu : 0xFu) & (l > tri.reach[k][1] ? 0x5u : 0xFu);
-  if ((kStage < 3 || !((tri.bits >> (9 + k)) & 1)) && !((tri.bits >> (6 + k)) & 1) && sides != 0u) {
+  if (!((tri.bits >> (9 + k)) & 1) && !((tri.bits >> (6 + k)) & 1) && sides != 0u) {
     const int f = edge_first(k), s = edge_second(k);
     sides &= box_sides(tri.p[f], tri.p[f + 1], tri.p[s], tri.p[s + 1], px, py);
   }
@@ -288,7 +284,6 @@ __device__ __forceinline__ int32_t find_triangle(const int64_t* __restrict__ end
 }
 
 // Load triangle i's row and meta into `tri`, with its edges' thresholds.
-template <int kStage>
 __device__ __forceinline__ void load_tri(Tri& tri, int32_t i, const float* __restrict__ rows,
                                          const int32_t* __restrict__ meta) {
   const int32_t* m = meta + static_cast<int64_t>(i) * kMeta;
@@ -324,7 +319,7 @@ __device__ __forceinline__ void load_tri(Tri& tri, int32_t i, const float* __res
       } else {
         tri.reach[k][0] = tri.reach[k][1] = -1.f;
       }
-    } else if (kStage >= 2 && line_reach(a0, b0, c0, m[1], m[2], m[3], m[4], tri.reach[k])) {
+    } else if (line_reach(a0, b0, c0, m[1], m[2], m[3], m[4], tri.reach[k])) {
       tri.bits |= 1 << (9 + k);
     }
   }
@@ -364,7 +359,6 @@ struct Walk {
 // Move a lane to thread number t, whose triangle is `i` or one after it:
 // up to 8 triangles one by one (the next window, past empty ones), then a
 // binary search; load the triangle and find the pixel with one division.
-template <int kStage>
 __device__ __forceinline__ void seek(Tri& tri, Walk& w, int64_t t, int32_t i, int32_t n_tri,
                                      const float* __restrict__ rows, const int32_t* __restrict__ meta,
                                      const int64_t* __restrict__ ends) {
@@ -377,31 +371,30 @@ __device__ __forceinline__ void seek(Tri& tri, Walk& w, int64_t t, int32_t i, in
   w.t = t;
   w.tri_end = ends[i];
   const int32_t off = static_cast<int32_t>(t - (i == 0 ? 0 : ends[i - 1]));
-  load_tri<kStage>(tri, i, rows, meta);
+  load_tri(tri, i, rows, meta);
   w.row = off / tri.w_cols;
   w.col = off - w.row * tri.w_cols;
 }
 
 constexpr int kThreads = 256;
-constexpr int kQueue = 128;  // (pixel, edge) pairs a warp holds before it tests them (stage 3)
+constexpr int kQueue = 128;  // (pixel, edge) pairs a warp holds before it tests them
 // A queued pair is (x, y, triangle, edge | sides << 2 | kWholeTest); the
 // flag marks an edge with a non-finite line coefficient, tested whole.
 constexpr int32_t kWholeTest = 1 << 6;
 
-template <int kStage>
 __global__ void __launch_bounds__(kThreads) lines_kernel(
     const float* __restrict__ rows, const int32_t* __restrict__ meta,
     const int64_t* __restrict__ ends, unsigned long long* __restrict__ keys,
     int32_t n_batch, int32_t n_faces, int32_t height, int32_t width,
     int32_t y_offset) {
-  __shared__ int4 queues[kStage >= 3 ? kThreads / 32 : 1][kStage >= 3 ? kQueue : 1];
+  __shared__ int4 queues[kThreads / 32][kQueue];
   const int32_t n_tri = n_batch * n_faces;
   const int64_t total = ends[n_tri - 1];
   const int lane = threadIdx.x & 31;
-  int4* queue = queues[kStage >= 3 ? threadIdx.x >> 5 : 0];
+  int4* queue = queues[threadIdx.x >> 5];
   uint32_t head = 0, tail = 0;  // the warp's queue: entries [head, tail), mod kQueue
-  // Stage 3: test the next n <= 32 queued pairs, one per lane; a crossed
-  // pair writes the pixel's key with the triangle's id.
+  // Test the next n <= 32 queued pairs, one per lane; a crossed pair
+  // writes the pixel's key with the triangle's id.
   const auto drain = [&](uint32_t n) {
     __syncwarp();
     const int4 pair = queue[(head + lane) % kQueue];
@@ -433,7 +426,7 @@ __global__ void __launch_bounds__(kThreads) lines_kernel(
   Tri tri;
   Walk w;
   if (begin + lane < end) {
-    seek<kStage>(tri, w, begin + lane, find_triangle(ends, 0, n_tri - 1, begin + lane), n_tri, rows, meta, ends);
+    seek(tri, w, begin + lane, find_triangle(ends, 0, n_tri - 1, begin + lane), n_tri, rows, meta, ends);
   }
   for (int64_t base = begin; base < end; base += 32) {
     const bool active = base + lane < end;
@@ -446,43 +439,29 @@ __global__ void __launch_bounds__(kThreads) lines_kernel(
     const bool inside = active && keep(e0, tri.bits & 1) && keep(e1, tri.bits & 2) && keep(e2, tri.bits & 4);
     uint32_t sides[3];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) sides[k] = active ? edge_sides<kStage>(tri, k, px, py) : 0u;
+    for (int k = 0; k < 3; ++k) sides[k] = active ? edge_sides(tri, k, px, py) : 0u;
 
-    if constexpr (kStage < 3) {
-      bool crossing = false;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const int f = edge_first(k), s = edge_second(k);
-        crossing = crossing || (sides[k] != 0u && diamond_crossing(tri.p[f], tri.p[f + 1], tri.p[s], tri.p[s + 1],
-                                                                   px, py, sides[k]));
-      }
-      if (inside || (active && crossing)) {
-        write_key(keys, rows + static_cast<int64_t>(i) * kRow, e0, e1, e2, i, crossing, x, y, n_faces, height,
-                  width, y_offset);
-      }
-    } else {
-      // Interior keys now; the surviving (pixel, edge) pairs go to the
-      // queue, and whenever it holds 32 a pass tests them on dense lanes. A
-      // crossed pixel's key has the same depth as its interior key and a
-      // smaller id, so the atomicMin ends where the plain version does in
-      // whichever order the two come.
-      const uint32_t below = (1u << lane) - 1u;
-      const auto push = [&](bool own, int32_t what) {
-        const uint32_t owners = __ballot_sync(kFull, own);
-        if (own) queue[(tail + __popc(owners & below)) % kQueue] = make_int4(x, y, i, what);
-        tail += __popc(owners);
-      };
-      if (inside) {
-        write_key(keys, rows + static_cast<int64_t>(i) * kRow, e0, e1, e2, i, false, x, y, n_faces, height,
-                  width, y_offset);
-      }
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        push(sides[k] != 0u,
-             k | static_cast<int32_t>(sides[k] << 2) | (((tri.bits >> (6 + k)) & 1) ? kWholeTest : 0));
-      }
-      while (tail - head >= 32u) drain(32u);
+    // Interior keys now; the surviving (pixel, edge) pairs go to the
+    // queue, and whenever it holds 32 a pass tests them on dense lanes. A
+    // crossed pixel's key has the same depth as its interior key and a
+    // smaller id, so the atomicMin ends where the plain version does in
+    // whichever order the two come.
+    const uint32_t below = (1u << lane) - 1u;
+    const auto push = [&](bool own, int32_t what) {
+      const uint32_t owners = __ballot_sync(kFull, own);
+      if (own) queue[(tail + __popc(owners & below)) % kQueue] = make_int4(x, y, i, what);
+      tail += __popc(owners);
+    };
+    if (inside) {
+      write_key(keys, rows + static_cast<int64_t>(i) * kRow, e0, e1, e2, i, false, x, y, n_faces, height,
+                width, y_offset);
     }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      push(sides[k] != 0u,
+           k | static_cast<int32_t>(sides[k] << 2) | (((tri.bits >> (6 + k)) & 1) ? kWholeTest : 0));
+    }
+    while (tail - head >= 32u) drain(32u);
 
     // 32 pixels on: the same window, or a later one.
     if (base + 32 + lane < end) {
@@ -495,13 +474,11 @@ __global__ void __launch_bounds__(kThreads) lines_kernel(
           ++w.row;
         }
       } else {
-        seek<kStage>(tri, w, w.t, i + 1, n_tri, rows, meta, ends);
+        seek(tri, w, w.t, i + 1, n_tri, rows, meta, ends);
       }
     }
   }
-  if constexpr (kStage >= 3) {
-    if (tail != head) drain(tail - head);
-  }
+  if (tail != head) drain(tail - head);
 }
 
 __global__ void unpack_kernel(const unsigned long long* __restrict__ keys,
@@ -547,9 +524,9 @@ int drtk_rasterize_lines_f32(const void* rows, const void* meta,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return static_cast<int>(err);
     int per_sm = 0;  // one wave of blocks: each warp walks one run of pixels
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lines_kernel<DRTK_B5_STAGE>, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lines_kernel, kThreads, 0);
     if (err != cudaSuccess) return static_cast<int>(err);
-    lines_kernel<DRTK_B5_STAGE><<<sms * (per_sm > 0 ? per_sm : 1), kThreads, 0, s>>>(
+    lines_kernel<<<sms * (per_sm > 0 ? per_sm : 1), kThreads, 0, s>>>(
         static_cast<const float*>(rows), static_cast<const int32_t*>(meta),
         static_cast<const int64_t*>(ends),
         static_cast<unsigned long long*>(keys), n_batch, n_faces, height,

@@ -7,13 +7,14 @@ run them on the card with ``python -m pytest tests/test_torch_kernels.py
 kernels: the dispatch, the launch counts and the setup packing, the latter
 against numpy emulations of kernel B1's and kernel B5's algorithms (B1's
 tile bins, big list and per-tile resolve; B5's lanes' walk to each
-(triangle, pixel), its box and line rejects at each compile-time stage and
-its warp queue), full frame and row tiles; a property test (hypothesis) that
-B5's rejects never drop a side the full test accepts; and numpy emulations
-of kernels B3 (pixel tiles, runs of equal faces, per-tile face merge) and
-B4 (warp patches of taps, grouped by texel) against the plain versions,
-with the global atomics each issues held to the models that chip_smoke.py
-reports (and B5's surviving edge tests to its torch model).
+(triangle, pixel), its box and line rejects, which it takes from
+chip_smoke.py's torch copy, and its warp queue), full frame and row tiles;
+a property test (hypothesis) that B5's rejects never drop a side the full
+test accepts; and numpy emulations of kernels B3 (pixel tiles, runs of
+equal faces, per-tile face merge) and B4 (warp patches of taps, grouped by
+texel) against the plain versions, with the global atomics each issues
+held to the models that chip_smoke.py reports (and B5's surviving edge
+tests to its model).
 
 Tolerances: kernel B2 copies table rows, so it must be bit-exact
 (torch.equal). Kernels B1 and B5 round every product, sum and quotient on
@@ -333,66 +334,18 @@ def test_b1_bins_reach_both_lists(scene):
         assert img[40, 47] in (0, 1) and img[40, 48] == 2
 
 
-def _b5_edge_setup(p1x, p1y, p2x, p2y, visible, window, stage=3):
-    """Kernel B5's load_tri for one edge, numpy float32 op for op: the
-    edge's corners and line (a0, b0, c0), whether they are finite, and from
-    stage 2 whether the line reject's guard holds and its thresholds on |L|
-    over the window (x_lo, x_hi, y_lo, y_hi, int arrays)."""
-    f = np.float32
-    x_lo, x_hi, y_lo, y_hi = (np.asarray(v) for v in window)
-    with np.errstate(all="ignore"):
-        a0, b0, c0 = p1y - p2y, p2x - p1x, p1x * p2y - p2x * p1y
-        finite = np.isfinite(a0) & np.isfinite(b0) & np.isfinite(c0)
-        m, c = np.maximum(np.abs(a0), np.abs(b0)), np.abs(c0)
-        guard = finite & (stage >= 2) & (m <= f(2.0**40)) & (c <= f(2.0**80))
-        guard &= (x_lo >= 1) & (y_lo >= 1) & (x_hi <= 2**22) & (y_hi <= 2**22)
-        for a in (np.abs(a0), np.abs(b0), c):
-            guard &= (a == 0) | (a >= f(2.0**-100))
-        x, y = x_hi.astype(f) + f(0.5), y_hi.astype(f) + f(0.5)
-        s, xy = x + y, x * y
-        e2 = f(2.0**-22) * xy + f(2.0**-24) * s
-        c2 = f(0.5) * s + e2
-        two_m = f(2) * m
-        r1 = (f(0.5) * m + two_m * (e2 + f(2.0**-22) * s)) + f(2.0**-22) * (m * s + c)
-        r2 = (two_m * f(2.0**-22)) * (two_m * c2 + c)
-        reach = [np.where(d == 0, f(-1), (r1 + (f(1) / d) * r2) * f(1 + 2.0**-18)).astype(f)
-                 for d in (f(0.5) * np.abs(a0 + b0), f(0.5) * np.abs(a0 - b0))]
-    return {"visible": np.asarray(visible), "finite": finite, "corners": (p1x, p1y, p2x, p2y),
-            "line": (a0, b0, c0), "guard": guard, "reach": reach}
-
-
-def _b5_box_sides(p1x, p1y, p2x, p2y, px, py):
-    """Kernel B5's box_sides (the box reject, exact by construction): bit s
-    set where diamond side s's box meets the segment's, for finite corners."""
-    h = np.float32(0.5)
-    xl, xr, yt, yb = px - h, px + h, py - h, py + h
-    min_x, max_x, min_y, max_y = np.minimum(p1x, p2x), np.maximum(p1x, p2x), np.minimum(p1y, p2y), np.maximum(p1y, p2y)
-    right = ~((max_x < px) | (min_x > xr))
-    left = ~((max_x < xl) | (min_x > px))
-    top = ~((max_y < yt) | (min_y > py))
-    bottom = ~((max_y < py) | (min_y > yb))
-    return ((right & top) * 1 | (right & bottom) * 2 | (left & bottom) * 4 | (left & top) * 8).astype(np.int32)
-
-
-def _b5_edge_sides(e, px, py, stage=3):
-    """Kernel B5's edge_sides, then at stage 3 the queue lane's box reject:
+def _b5_sides(p1x, p1y, p2x, p2y, visible, window, px, py, stage=3):
+    """Kernel B5's rejects for one edge, through chip_smoke.b5_edge_sides on
+    float32 CPU tensors (each op rounded on its own, as in the kernel):
     (the sides the owner lane keeps, the sides tested), bits in
-    diamond_crossing's order. None where the edge is invisible, all four
-    where a line coefficient is not finite; else those past the line reject
-    (stage 2 on, where its guard holds) and the box reject (at stage 3 in
-    the queue's lane where the line reject applied)."""
-    a0, b0, c0 = e["line"]
-    with np.errstate(all="ignore"):
-        big_l = np.abs((a0 * px + b0 * py) + c0)
-        box = _b5_box_sides(*e["corners"], px, py)
-    line = e["guard"]
-    sides = np.full(np.broadcast(big_l, px).shape, 0xF, np.int32)
-    sides &= np.where(line & (big_l > e["reach"][0]), ~np.int32(5), -1).astype(np.int32)
-    sides &= np.where(line & (big_l > e["reach"][1]), ~np.int32(10), -1).astype(np.int32)
-    kept = np.where((stage < 3) | ~line, sides & box, sides)
-    kept = np.where(e["visible"], np.where(e["finite"], kept, 0xF), 0).astype(np.int32)
-    tested = np.where(e["finite"], kept & box, kept).astype(np.int32)
-    return kept, tested
+    diamond_crossing's order; the second adds the box reject that stage 3
+    leaves to the queue's lane. numpy in and out; ``window`` is (x_lo,
+    x_hi, y_lo, y_hi)."""
+    p1x, p1y, p2x, p2y, visible, px, py = (torch.from_numpy(np.array(a)) for a in (p1x, p1y, p2x, p2y, visible, px, py))
+    window = tuple(torch.from_numpy(np.array(v)) for v in window)
+    kept = chip_smoke.b5_edge_sides(p1x, p1y, p2x, p2y, visible, window, px, py, stage)
+    box = chip_smoke.b5_edge_sides(p1x, p1y, p2x, p2y, visible, window, px, py, 1)
+    return kept.numpy(), (kept & box).numpy()
 
 
 def _b5_side_hits(p1x, p1y, p2x, p2y, px, py):
@@ -421,22 +374,23 @@ def _b5_side_hits(p1x, p1y, p2x, p2y, px, py):
 B5_EDGES = ((9, 11), (11, 13), (9, 13))  # the corners (row offsets) of edges (p0, p1), (p1, p2), (p0, p2)
 
 
-def _emulate_b5(rows, meta, ends, h, w, y_offset=0, stage=3, warps=4224):
-    """numpy emulation of csrc/rasterize_lines.cu built with DRTK_B5_STAGE =
-    ``stage``: the lanes' walk (:func:`_b5_walk`) to each thread number's
-    triangle (the first whose running window-area sum exceeds it) and pixel,
-    row-major in its window; each visible edge tested on the sides its
-    rejects leave (stage 1 the boxes, 2 also the line distance). Every
-    product, sum and quotient is rounded on its own in float32; the smallest
-    packed key (~float_bits(di) << 32) | id wins, id INT32_MAX where no edge
-    crosses. At stage 3 inside pixels write their interior key, and the
-    (pixel, edge) pairs left to test go to the warp's queue, from which a
-    crossed one writes the crossing key.
+def _emulate_b5(rows, meta, ends, h, w, y_offset=0, stage=3, warps=3168):
+    """numpy emulation of csrc/rasterize_lines.cu (``stage`` 3), or of its
+    rejects alone writing keys without the queue (1: the box reject, 2: the
+    box and line rejects): the lanes' walk (:func:`_b5_walk`) to each
+    thread number's triangle (the first whose running window-area sum
+    exceeds it) and pixel, row-major in its window; each visible edge tested
+    on the sides its rejects leave (:func:`_b5_sides`). Every product, sum
+    and quotient is rounded on its own in float32; the smallest packed key
+    (~float_bits(di) << 32) | id wins, id INT32_MAX where no edge crosses.
+    At stage 3 inside pixels write their interior key, and the (pixel, edge)
+    pairs left to test go to the warp's queue, from which a crossed one
+    writes the crossing key.
     Returns (depth, index, counts): window pixels, seeks, visible edges, the
     (pixel, edge) pairs tested and their sides, and at stage 3 the warp
-    steps, the runs (``warps`` of them, one wave of 4 blocks of 8 warps on
-    132 SMs by default), the queued pairs and the queue's passes of up to
-    32 pairs."""
+    steps, the runs (``warps`` of them, by default one wave of 3 blocks of 8
+    warps on 132 SMs, as the kernel's 80 registers allow), the queued pairs
+    and the queue's passes of up to 32 pairs."""
     n, f_cnt, _ = rows.shape
     f32 = np.float32
     total = int(ends[-1]) if ends.size else 0
@@ -451,9 +405,8 @@ def _emulate_b5(rows, meta, ends, h, w, y_offset=0, stage=3, warps=4224):
 
     queued, sides = [], []
     for k, (a, b) in enumerate(B5_EDGES):
-        setup = _b5_edge_setup(r[:, a], r[:, a + 1], r[:, b], r[:, b + 1], m[:, 0] >> (3 + k) & 1 == 1,
-                               (m[:, 1], m[:, 2], m[:, 3], m[:, 4]), stage)
-        kept, tested = _b5_edge_sides(setup, px, py, stage)
+        kept, tested = _b5_sides(r[:, a], r[:, a + 1], r[:, b], r[:, b + 1], m[:, 0] >> (3 + k) & 1 == 1,
+                                 (m[:, 1], m[:, 2], m[:, 3], m[:, 4]), px, py, stage)
         queued.append(kept != 0)
         sides.append(tested)
     pairs = [s != 0 for s in sides]
@@ -573,9 +526,8 @@ def _packed_lines(scene, y0=0, hb=None):
 @pytest.mark.parametrize("viewport", VIEWPORTS)
 @pytest.mark.parametrize("scene", B5_SCENES)
 def test_packed_lines_reproduce_plain_resolve(scene, viewport):
-    """What kernel B5 computes from pack_lines' rows (emulated in numpy, as
-    built, DRTK_B5_STAGE 3) equals the plain wireframe resolve bit for bit,
-    in a row tile too."""
+    """What kernel B5 computes from pack_lines' rows (emulated in numpy)
+    equals the plain wireframe resolve bit for bit, in a row tile too."""
     y0, hb = viewport
     rows, meta, ends, (setup, lines, valid), h, w = _packed_lines(scene, y0, hb)
     hb = hb or h
@@ -591,8 +543,9 @@ def test_packed_lines_reproduce_plain_resolve(scene, viewport):
 @pytest.mark.parametrize("stage", [1, 2])
 @pytest.mark.parametrize("scene", B5_SCENES)
 def test_b5_stages_reproduce_plain_resolve(scene, stage):
-    """Kernel B5 built with DRTK_B5_STAGE 1 (box reject) or 2 (box and line
-    rejects, no compaction), emulated: bit for bit the plain resolve."""
+    """Kernel B5's rejects alone, without the queue, emulated: the box
+    reject (1), the box and line rejects (2); each leaves the plain resolve
+    bit for bit."""
     rows, meta, ends, (setup, lines, valid), h, w = _packed_lines(scene)
     depth, index, _ = _emulate_b5(rows.numpy(), meta.numpy(), ends.numpy(), h, w, stage=stage)
     d_ref, i_ref = _rasterize_lines_plain(setup, lines, valid, h, w, 0, h)
@@ -616,9 +569,10 @@ def test_b5_rejects_cut_the_edge_tests_on_inverse8():
     """On the inverse8 views, the (pixel, edge) pairs left to the side tests
     per window pixel, out of 3 visible edges: at most 1.3 after the box
     reject, at most 0.3 after the line reject; a warp seeks new triangles
-    in at most two steps per window boundary; stage 3's queue takes them in far
-    fewer passes than one per step; and chip_smoke.py's torch model of the
-    rejects counts what the emulation does."""
+    in at most two steps per window boundary; the kernel's queue (stage 3)
+    takes them in far fewer passes than one per step; and chip_smoke.py's
+    model of the edge tests (modeled_edge_tests, its own walk over the
+    packed rows) counts what the emulation does."""
     (rows, meta, ends), h = _inverse8_lines()
     counts = {stage: _emulate_b5(rows.numpy(), meta.numpy(), ends.numpy(), h, h, stage=stage, warps=64)[2]
               for stage in (1, 2, 3)}
@@ -633,7 +587,6 @@ def test_b5_rejects_cut_the_edge_tests_on_inverse8():
     # stage 3 queues the (pixel, edge) pairs past the line reject, and tests
     # them in a pass of 32 per 3 steps of 32 pixels or fewer
     assert counts[2]["edge_tests"] <= counts[3]["queued"] <= 0.5 * pixels
-    assert counts[3]["queue_passes"] <= counts[3]["warp_steps"] / 3
     assert counts[3]["queue_passes"] <= counts[3]["warp_steps"] / 3
     model = chip_smoke.modeled_edge_tests(rows, meta, ends, chunk=1 << 14)
     assert model["window_pixels"] == pixels and model["visible"] == 3.0
@@ -656,20 +609,21 @@ def _ulps(x, steps=(-2, -1, 0, 1, 2)):
 
 
 def _b5_sides_at(args, stage, wide=False):
-    """edge_sides for segments and pixels ``args`` (float32 arrays, p1x p1y
-    p2x p2y px py) of a visible edge whose window ends at the pixel, or
-    with ``wide`` at 4094 (its thresholds then hold for a larger window)."""
+    """The sides tested for segments and pixels ``args`` (float32 arrays,
+    p1x p1y p2x p2y px py) of a visible edge whose window ends at the pixel,
+    or with ``wide`` at 4094 (its thresholds then hold for a larger
+    window)."""
     p1x, p1y, p2x, p2y, px, py = args
     x, y = px.astype(np.int64), py.astype(np.int64)
     hi = (np.maximum(x, 4094), np.maximum(y, 4094)) if wide else (x, y)
-    setup = _b5_edge_setup(p1x, p1y, p2x, p2y, True, (np.ones_like(x), hi[0], np.ones_like(y), hi[1]), stage)
-    return _b5_edge_sides(setup, px, py, stage)[1]
+    return _b5_sides(p1x, p1y, p2x, p2y, True, (np.ones_like(x), hi[0], np.ones_like(y), hi[1]), px, py, stage)[1]
 
 
 def _assert_reject_keeps_every_hit(p1x, p1y, p2x, p2y, px, py):
     """Every (edge, pixel, side) that the full side test accepts survives
-    the rejects of stages 1, 2 (thresholds from the pixel's own window and
-    from a wider one) and 3; returns the accepted count."""
+    the box reject (stage 1), the box and line rejects (2, thresholds from
+    the pixel's own window and from a wider one) and the kernel's (3);
+    returns the accepted count."""
     args = np.broadcast_arrays(*(np.asarray(a, np.float32) for a in (p1x, p1y, p2x, p2y, px, py)))
     hits = _b5_side_hits(*args)
     for stage, wide in ((1, False), (2, False), (2, True), (3, False)):
@@ -740,11 +694,12 @@ def _wild_segments(draw):
 @pytest.mark.parametrize("segments", [_reach_segments, _parallel_segments, _degenerate_segments, _wild_segments],
                          ids=["reach", "parallel", "degenerate", "wild"])
 def test_b5_reject_never_drops_a_crossing(segments):
-    """Property: kernel B5's rejects (numpy copies, float32 rounded op by op,
-    float64 where the kernel uses double) never drop a diamond side that the
-    full side test accepts; drawn at pixels up to 4094, with segments at a
-    corner of the diamond's reach, nearly parallel to a side, degenerate,
-    and with huge or non-finite coordinates, each within +-2 ulps."""
+    """Property: kernel B5's rejects (chip_smoke.b5_edge_sides on float32
+    CPU tensors, rounded op by op) never drop a diamond side that the full
+    side test (numpy float32) accepts; drawn at pixels up to 4094, with
+    segments at a corner of the diamond's reach, nearly parallel to a side,
+    degenerate, and with huge or non-finite coordinates, each within +-2
+    ulps."""
 
     @settings(max_examples=150, deadline=None, database=None, derandomize=True)
     @given(segments())
