@@ -16,7 +16,16 @@ checked just after:
   wireframe render of every view through ``transform`` (kernel B5) and the
   multi-view training step (``transform`` through the textured pipeline
   with a silhouette, gradients to the world vertices and the texture, an
-  Adam update).
+  Adam update);
+- on the ``avatar4k`` scene of ``bench.py`` (a 4096x4096 frame of a
+  226x226-vertex grid, 101,250 triangles, in 4 row bands recomputed in the
+  backward, mipmapped shading from a 3x512^2..3x64^2 pyramid, an MSI
+  background on 256^2 rays), the training step (gradients to the vertices,
+  the pyramid and the MSI texture, an Adam update), with B1 under the
+  viewport, B2, B3 (the banded edge_grad's rows) and B4 (the mipmap
+  backward's taps) held against their plain versions on the step's own
+  band-0 inputs, the bands against the full frame and the band recompute
+  against none.
 
 The face-row gather (B2), the pixel-to-face accumulation (B3) and the
 texture-gradient scatter (B4) are held against their plain versions on the
@@ -75,6 +84,10 @@ LINE_FLOOR_FLOPS_PER_TEST, LINE_BYTES_PER_PIXEL, LINE_KEY_BYTES_PER_PIXEL = 12, 
 # (2 mul + 1 sub + 1 div)), each division counted once.
 LINE_FLOPS_PER_TEST, LINE_FLOPS_PER_EDGE = 12 + 19, 5 + 4 * 16
 CAMS = ("campos", "camrot", "focal", "princpt")
+# The avatar4k configuration (bench.py: bench_avatar4k, BASELINE config 5): 4096^2, a 226x226-vertex grid
+# (101,250 triangles), 4 row bands, a 256^2 MSI ray grid; 2 warm-up steps, 5 timed, 2 profiled.
+AV_HW, AV_GN, AV_BH, AV_BANDS = 4096, 226, 256, 4
+AV_WARMUP, AV_STEPS, AV_PROFILED = 2, 5, 2
 
 
 def emit(record: dict) -> None:
@@ -139,14 +152,16 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
 def device_profile(step, n_steps: int) -> dict | None:
     """Device records of ``n_steps`` calls of ``step`` under torch.profiler:
     device operations per step, the share of the device window in which some
-    operation ran, and the costliest operations (ms per step). None when the
-    profiler records no device activity."""
+    operation ran, the costliest device operations, and the PyTorch
+    operators (with their input shapes) whose own device time is the
+    largest (ms per step). None when the profiler records no device
+    activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
         for _ in range(n_steps):
             step()
         torch.cuda.synchronize()
@@ -168,12 +183,24 @@ def device_profile(step, n_steps: int) -> dict | None:
     busy += cur_end - cur_start
     window = spans[-1][1] - spans[0][0]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    operators = sorted(
+        ((f"{e.key} {e.input_shapes}"[:160], e.self_device_time_total)
+         for e in prof.key_averages(group_by_input_shape=True) if e.self_device_time_total > 0),
+        key=lambda kv: -kv[1],
+    )[:12]
     return {
         "steps": n_steps, "device_ops_per_step": len(spans) / n_steps,
         "device_busy_ms_per_step": busy / n_steps / 1e3, "device_window_ms_per_step": window / n_steps / 1e3,
         "device_busy_share": busy / window if window > 0 else None,
         "top_device_ops_ms_per_step": {name: us / n_steps / 1e3 for name, us in top},
+        "top_operators_device_ms_per_step": {name: us / n_steps / 1e3 for name, us in operators},
     }
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|; 0 where both are all zero."""
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    return err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))
 
 
 def check_raster(name, d_ref, i_ref, d, i) -> dict:
@@ -358,13 +385,17 @@ def main() -> int:
         from drtk_tpu_torch.ops import rasterize as rast
         from drtk_tpu_torch.ops import grid_sample as gs
         from drtk_tpu_torch.ops import rasterize_cuda, segment_rows, window_accum
+        from drtk_tpu_torch.ops.edge_grad import _stencil_table
         from drtk_tpu_torch.ops.render import _face_table
         from drtk_tpu_torch.interop import scene_from_numpy
+        from drtk_tpu_torch.parallel import banded
         from drtk_tpu_torch.pipeline import (
-            BACKWARD_STAGES, FIT_STAGES, INVERSE8_STAGES, STAGES, fit_step, inverse8_step, render_multiview,
-            render_textured, stage_ms,
+            AVATAR4K_STAGES, BACKWARD_STAGES, FIT_STAGES, INVERSE8_STAGES, STAGES, avatar4k_background, avatar4k_band,
+            avatar4k_loss, avatar4k_step, fit_step, inverse8_step, render_multiview, render_textured, stage_ms,
         )
-        from drtk_tpu_torch.scenes import entry_scene, inverse8_scene_arrays, make_scene, with_edge_flags
+        from drtk_tpu_torch.scenes import (
+            avatar4k_scene_arrays, entry_scene, inverse8_scene_arrays, make_scene, with_edge_flags,
+        )
     except ImportError as err:
         print(f"chip_smoke: drtk_tpu_torch is not importable here ({err})", file=sys.stderr)
         return 3
@@ -431,13 +462,15 @@ def main() -> int:
 
     # 4. B1 vs plain on the entry scene and the textured scene (and, in
     # phase 13, on the inverse8 step's views)
-    def b1_vs_plain(scene, sv, svi, hh, ww) -> dict:
+    def b1_vs_plain(scene, sv, svi, hh, ww, y0=0, frame_h=None) -> dict:
+        """B1 on rows [y0, y0 + hh) of a frame of ``frame_h`` rows (default hh)."""
+        frame_h = hh if frame_h is None else frame_h
         svib = rast.broadcast_vi(svi, sv.shape[0])
         setup = rast.triangle_setup(sv, svib)
-        valid = rast._canvas_cull(setup, hh, ww)
-        coef, meta = rasterize_cuda.pack_setup(setup, valid, hh, ww)
-        d, i, bins = rasterize_cuda._resolve_binned(coef, meta, hh, ww)
-        d_ref, i_ref = rast._rasterize_plain(setup, valid, hh, ww)
+        valid = rast._canvas_cull(setup, frame_h, ww)
+        coef, meta = rasterize_cuda.pack_setup(setup, valid, hh, ww, y0)
+        d, i, bins = rasterize_cuda._resolve_binned(coef, meta, hh, ww, y0)
+        d_ref, i_ref = rast._rasterize_plain(setup, valid, hh, ww, y_offset=y0)
         torch.cuda.synchronize()
         rec = check_raster(f"B1 {scene}", d_ref, i_ref, d, i)
         if not (torch.equal(d, d_ref) and torch.equal(i, i_ref)):
@@ -447,16 +480,18 @@ def main() -> int:
         nbytes = coef.numel() * 4 + meta.numel() * 4 + d.numel() * 4 + i.numel() * 4
         bound_bytes_ms = nbytes / bw * 1e3
         bound_ops_ms = tests * FLOPS_PER_TEST / f32_flops * 1e3
-        ms_runs = [cuda_ms(lambda: rasterize_cuda.resolve_packed(coef, meta, hh, ww), 20) for _ in range(3)]
+        ms_runs = [cuda_ms(lambda: rasterize_cuda.resolve_packed(coef, meta, hh, ww, y0), 20) for _ in range(3)]
         rec.update({
-            "H": hh, "W": ww, "batch": int(sv.shape[0]), "faces": int(svib.shape[1]), "bit_exact": True,
+            "H": hh, "W": ww, "y_offset": y0, "frame_H": frame_h, "batch": int(sv.shape[0]),
+            "faces": int(svib.shape[1]), "bit_exact": True,
             "pairs": int(bins.starts[-1]), "pair_capacity": bins.pairs.numel(),
             "big_list": int(bins.big_count.sum()),
             "bins_bytes": 4 * sum(rasterize_cuda._bin_sizes(*coef.shape[:2], hh, ww)),
             "ms": statistics.median(ms_runs), "ms_runs": ms_runs,
-            "device_ms": graph_ms(lambda: rasterize_cuda.resolve_packed(coef, meta, hh, ww)),
-            "plain_ms": cuda_ms(lambda: rast._rasterize_plain(setup, valid, hh, ww), 2, warmup=1),
-            "rasterize_call_ms": cuda_ms(lambda: tt.rasterize_with_depth(sv, svi, hh, ww), 20),
+            "device_ms": graph_ms(lambda: rasterize_cuda.resolve_packed(coef, meta, hh, ww, y0)),
+            "plain_ms": cuda_ms(lambda: rast._rasterize_plain(setup, valid, hh, ww, y_offset=y0), 2, warmup=1),
+            "rasterize_call_ms": cuda_ms(
+                lambda: tt.rasterize_with_depth(sv, svi, hh, ww, y_offset=y0, full_height=frame_h), 20),
             "pixel_centres_tested": tests, "bytes": nbytes,
             "bound_ms": max(bound_bytes_ms, bound_ops_ms),
             "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations", "library_ms": None,
@@ -535,46 +570,49 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     b3_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "library_device_ms")
 
-    def b3_vs_plain(image, idx, f_cnt) -> dict:
-        n = idx.shape[0]
+    def b3_record(image, rows, idx, f_cnt) -> dict:
+        """B3 against its plain version and ``index_add_`` on these rows."""
+        n, k_dim = idx.shape[0], rows.shape[-1]
         fg = idx >= 0
         n_fg = int(fg.sum())
         lib_idx = (idx.long().clamp(max=f_cnt - 1) + torch.arange(n, device=dev)[:, None, None] * f_cnt)[fg]
-        recs = {}
-        for k_dim in (9, 6):
-            rows = torch.randn((*idx.shape, k_dim), generator=gen, device=dev)
-            got = segment_rows.scatter_rows_to_faces(rows, idx, f_cnt)
-            want = segment_rows._scatter_rows_plain(rows, idx, f_cnt)
-            magnitude = segment_rows._scatter_rows_plain(rows.abs(), idx, f_cnt)
-            lib_rows = rows[fg]
+        got = segment_rows.scatter_rows_to_faces(rows, idx, f_cnt)
+        want = segment_rows._scatter_rows_plain(rows, idx, f_cnt)
+        magnitude = segment_rows._scatter_rows_plain(rows.abs(), idx, f_cnt)
+        lib_rows = rows[fg]
 
-            def library(lib_rows=lib_rows, k_dim=k_dim):
-                return torch.zeros((n * f_cnt, k_dim), device=dev).index_add_(0, lib_idx, lib_rows)
+        def library():
+            return torch.zeros((n * f_cnt, k_dim), device=dev).index_add_(0, lib_idx, lib_rows)
 
-            torch.cuda.synchronize()
-            err = (got - want).abs()
-            # atomics reorder the sums: rtol 1e-5, atol 1e-6 of the summed magnitudes
-            if not bool((err <= 1e-5 * want.abs() + 1e-6 * magnitude).all()):
-                raise AssertionError(
-                    f"B3 {image} K={k_dim}: kernel differs from the plain scatter by {err.max().item()}")
-            lib_err = (library().reshape(n, f_cnt, k_dim) - want).abs()
-            if not bool((lib_err <= 1e-5 * want.abs() + 1e-6 * magnitude).all()):
-                raise AssertionError(f"B3 {image} K={k_dim}: the library yardstick computes another function")
-            nbytes = n_fg * k_dim * 4 + idx.numel() * 4 + n * f_cnt * k_dim * 4
-            atomics = modeled_scatter_atomics(idx, f_cnt, k_dim)
-            recs[k_dim] = {
-                "ms": cuda_ms(lambda: segment_rows._scatter_rows_cuda(rows, idx, f_cnt), 50),
-                "device_ms": graph_ms(lambda: segment_rows._scatter_rows_cuda(rows, idx, f_cnt)),
-                "plain_ms": cuda_ms(lambda: segment_rows._scatter_rows_plain(rows, idx, f_cnt), 20),
-                "library_ms": cuda_ms(library, 50), "library_device_ms": graph_ms(library),
-                "library": "index_add_ of the foreground rows (the plain "
-                "version's core, without its masking)", "foreground_pixels": n_fg,
-                "bytes": nbytes, "bound_ms": nbytes / bw * 1e3, "max_abs_err": err.max().item(),
-                "modeled_global_atomics": atomics, "modeled_per_pixel_atomics": n_fg * k_dim,
-                "modeled_atomics_fall": n_fg * k_dim / max(atomics, 1),
-            }
-            emit({"phase": "B3 vs plain", "image": image, "batch": n, "faces": f_cnt, "K": k_dim, **recs[k_dim]})
-        return recs
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        # atomics reorder the sums: rtol 1e-5, atol 1e-6 of the summed magnitudes
+        if not bool((err <= 1e-5 * want.abs() + 1e-6 * magnitude).all()):
+            raise AssertionError(
+                f"B3 {image} K={k_dim}: kernel differs from the plain scatter by {err.max().item()}")
+        lib_err = (library().reshape(n, f_cnt, k_dim) - want).abs()
+        if not bool((lib_err <= 1e-5 * want.abs() + 1e-6 * magnitude).all()):
+            raise AssertionError(f"B3 {image} K={k_dim}: the library yardstick computes another function")
+        nbytes = n_fg * k_dim * 4 + idx.numel() * 4 + n * f_cnt * k_dim * 4
+        atomics = modeled_scatter_atomics(idx, f_cnt, k_dim)
+        rec = {
+            "ms": cuda_ms(lambda: segment_rows._scatter_rows_cuda(rows, idx, f_cnt), 50),
+            "device_ms": graph_ms(lambda: segment_rows._scatter_rows_cuda(rows, idx, f_cnt)),
+            "plain_ms": cuda_ms(lambda: segment_rows._scatter_rows_plain(rows, idx, f_cnt), 20),
+            "library_ms": cuda_ms(library, 50), "library_device_ms": graph_ms(library),
+            "library": "index_add_ of the foreground rows (the plain "
+            "version's core, without its masking)", "foreground_pixels": n_fg,
+            "bytes": nbytes, "bound_ms": nbytes / bw * 1e3, "max_abs_err": err.max().item(),
+            "modeled_global_atomics": atomics, "modeled_per_pixel_atomics": n_fg * k_dim,
+            "modeled_atomics_fall": n_fg * k_dim / max(atomics, 1),
+        }
+        emit({"phase": "B3 vs plain", "image": image, "batch": n, "faces": f_cnt, "K": k_dim,
+              "rows_shape": list(rows.shape), **rec})
+        return rec
+
+    def b3_vs_plain(image, idx, f_cnt) -> dict:
+        return {k_dim: b3_record(image, torch.randn((*idx.shape, k_dim), generator=gen, device=dev), idx, f_cnt)
+                for k_dim in (9, 6)}
 
     b3 = b3_vs_plain("textured", index_img, n_faces)
 
@@ -584,27 +622,18 @@ def main() -> int:
     # inverse8 step's after phase 13), with the global atomics of the
     # kernel's design, modeled, against a per-tap scatter's.
 
-    def b4_vs_plain(image, sv, svi, svt, stex, idx) -> dict:
-        n, hh, ww = idx.shape
-        t_h, t_w = stex.shape[2:]
-        fg = idx >= 0
-        n_fg = int(fg.sum())
-        with torch.no_grad():
-            _, bary0 = tt.render(sv, svi, idx)
-            uv = tt.interpolate(svt, svi, idx, bary0).movedim(1, -1) * 2.0 - 1.0
-        bx = torch.floor(gs._compute_source_index(uv[..., 0], t_w, "border", False)).int().clamp(0, t_w - 1)
-        by = torch.floor(gs._compute_source_index(uv[..., 1], t_h, "border", False)).int().clamp(0, t_h - 1)
-        k4 = 4 * stex.shape[1]  # the quad table's rows
-        cot = torch.randn((n, hh * ww, k4), generator=gen, device=dev) * fg.reshape(n, -1, 1)  # zero at background
-        iy = torch.where(fg, by, -1).reshape(n, -1)
-        ix = bx.reshape(n, -1)
-        rows_kp = cot.transpose(1, 2)  # the [N, K, P] view the row scatter passes
-        args = (rows_kp, iy, ix, t_h, t_w, (hh, ww))
+    def b4_record(image, args) -> dict:
+        """B4 against its plain version and ``index_add_`` on its arguments
+        (rows [N, K, P], iy, ix, table height and width, rows_hw)."""
+        rows_kp, iy, ix, t_h, t_w, rows_hw = args
+        n, k4, _ = rows_kp.shape
+        live = (iy >= 0) & (iy < t_h) & (ix >= 0) & (ix < t_w)
+        n_live = int(live.sum())
         got = window_accum._window_accumulate_cuda(*args)
         want = window_accum._window_accumulate_plain(*args[:5])
         magnitude = window_accum._window_accumulate_plain(rows_kp.abs(), *args[1:5])
-        lib_flat = ((by * t_w + bx) + torch.arange(n, device=dev)[:, None, None] * (t_h * t_w))[fg].long()
-        lib_rows = cot[fg.reshape(n, -1)].t().contiguous()
+        lib_flat = ((iy.long() * t_w + ix) + torch.arange(n, device=dev)[:, None] * (t_h * t_w))[live]
+        lib_rows = rows_kp.movedim(1, 0)[:, live].contiguous()
 
         def library_b4():
             return torch.zeros((k4, n * t_h * t_w), device=dev).index_add_(1, lib_flat, lib_rows)
@@ -616,10 +645,11 @@ def main() -> int:
         lib = library_b4().reshape(k4, n, t_h, t_w).movedim(0, 1)
         if not bool(((lib - want).abs() <= 1e-5 * want.abs() + 1e-6 * magnitude).all()):
             raise AssertionError(f"B4 {image}: the library yardstick computes another function")
-        nbytes = n_fg * k4 * 4 + iy.numel() * 4 + ix.numel() * 4 + n * k4 * t_h * t_w * 4
-        atomics = modeled_window_atomics(iy, ix, t_h, t_w, k4, (hh, ww))
+        nbytes = n_live * k4 * 4 + iy.numel() * 4 + ix.numel() * 4 + n * k4 * t_h * t_w * 4
+        atomics = modeled_window_atomics(iy, ix, t_h, t_w, k4, rows_hw)
         rec = {
-            "K": k4, "batch": n, "taps": iy.numel(), "live_taps": n_fg, "rows_hw": [hh, ww], "table": [t_h, t_w],
+            "K": k4, "batch": n, "taps": iy.numel(), "live_taps": n_live, "rows_hw": list(rows_hw),
+            "table": [t_h, t_w],
             "ms": cuda_ms(lambda: window_accum._window_accumulate_cuda(*args), 50),
             "device_ms": graph_ms(lambda: window_accum._window_accumulate_cuda(*args)),
             "plain_ms": cuda_ms(lambda: window_accum._window_accumulate_plain(*args[:5]), 20),
@@ -627,11 +657,26 @@ def main() -> int:
             "library": "index_add_ of the live taps' rows (the plain "
             "version's core, without its masking)",
             "bytes": nbytes, "bound_ms": nbytes / bw * 1e3, "max_abs_err": err.max().item(),
-            "modeled_global_atomics": atomics, "modeled_per_tap_atomics": n_fg * k4,
-            "modeled_atomics_fall": n_fg * k4 / max(atomics, 1),
+            "modeled_global_atomics": atomics, "modeled_per_tap_atomics": n_live * k4,
+            "modeled_atomics_fall": n_live * k4 / max(atomics, 1),
         }
         emit({"phase": "B4 vs plain", "image": image, **rec})
         return rec
+
+    def b4_vs_plain(image, sv, svi, svt, stex, idx) -> dict:
+        n, hh, ww = idx.shape
+        t_h, t_w = stex.shape[2:]
+        fg = idx >= 0
+        with torch.no_grad():
+            _, bary0 = tt.render(sv, svi, idx)
+            uv = tt.interpolate(svt, svi, idx, bary0).movedim(1, -1) * 2.0 - 1.0
+        bx = torch.floor(gs._compute_source_index(uv[..., 0], t_w, "border", False)).int().clamp(0, t_w - 1)
+        by = torch.floor(gs._compute_source_index(uv[..., 1], t_h, "border", False)).int().clamp(0, t_h - 1)
+        k4 = 4 * stex.shape[1]  # the quad table's rows
+        cot = torch.randn((n, hh * ww, k4), generator=gen, device=dev) * fg.reshape(n, -1, 1)  # zero at background
+        iy = torch.where(fg, by, -1).reshape(n, -1)
+        ix = bx.reshape(n, -1)
+        return b4_record(image, (cot.transpose(1, 2), iy, ix, t_h, t_w, (hh, ww)))  # the [N, K, P] view
 
     b4 = b4_vs_plain("textured", v, vi, vt, tex, index_img)
 
@@ -897,6 +942,155 @@ def main() -> int:
     b3_inv = b3_vs_plain("inverse8", idx_k, int(inv["vi"].shape[0]))
     b4_inv = b4_vs_plain("inverse8", inv_v_pix, inv["vi"], inv["vt"].expand(INV_VIEWS, -1, -1), inv["tex_gt"], idx_k)
 
+    # 15. The avatar4k step (bench.py:bench_avatar4k, BASELINE config 5) at
+    # full size: a 4096^2 frame of a 226x226-vertex grid (101,250
+    # triangles) in 4 bands of 1024 rows, each recomputed in the backward, a
+    # pyramid of 3x512^2 .. 3x64^2, an 8x4x64x128 MSI texture on 256^2
+    # rays, Adam lr 1e-3 over the vertices, the levels and the MSI texture.
+    t_av = time.perf_counter()
+    av = scene_from_numpy(avatar4k_scene_arrays(AV_HW, AV_GN, AV_BH), dev)
+    av_params = (av["v"].requires_grad_(), [x.requires_grad_() for x in av["levels"]], av["msi_tex"].requires_grad_())
+    av_leaves = [av_params[0], *av_params[1], av_params[2]]
+    av_opt = torch.optim.Adam(av_leaves, lr=1e-3)
+    av_args = (av["vi"], av["vt"], av["ray_o"], av["ray_d"], AV_HW, AV_BANDS)
+    av_faces, hb = int(av["vi"].shape[0]), AV_HW // AV_BANDS
+    # per band: B1 and B2 (render K=9, interpolate K=6) in the forward and
+    # again in its recompute; B2 in interpolate's and render's backward and
+    # edge_grad's (K=16); B3 in render's backward and edge_grad's; B4 once.
+    av_per_step = {"B1 rasterize": 2 * AV_BANDS, "B2 gather_rows": 7 * AV_BANDS, "B3 scatter_rows": 2 * AV_BANDS,
+                   "B4 window_accum": AV_BANDS, "B5 rasterize_lines": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tt.reset_kernel_launch_counts()
+    step_marks, host_s, losses = [], [], []
+    for _ in range(AV_WARMUP + AV_STEPS):
+        marks = []
+        t0 = time.perf_counter()
+        loss, grads = avatar4k_step(av_params, av_opt, *av_args, stage_times=marks)
+        host_s.append(time.perf_counter() - t0)
+        step_marks.append(marks)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    av_launches = tt.kernel_launch_counts()
+    n_steps = AV_WARMUP + AV_STEPS
+    if av_launches != {k: c * n_steps for k, c in av_per_step.items()}:
+        raise AssertionError(f"avatar4k step: launches {av_launches} over {n_steps} steps, expected {av_per_step} "
+                             "per step")
+    av_peak = torch.cuda.max_memory_allocated()
+    losses = [x.item() for x in losses]
+    # At 4096^2 a pixel spans 1/8 of a base texel, so the mip selection
+    # clamps to level 0 but where the finite differences cross the mesh's
+    # silhouette; coarser levels may get no gradient at all.
+    av_grads = {"v": grads["v"], "msi_tex": grads["msi_tex"],
+                **{f"levels[{i}]": x for i, x in enumerate(grads["levels"])}}
+    for leaf, g in av_grads.items():
+        if not bool(torch.isfinite(g).all()) or (leaf in ("v", "levels[0]", "msi_tex") and not bool((g != 0).any())):
+            raise AssertionError(f"avatar4k step: grad_{leaf} is not finite, or is all zero")
+    av_nonzero = {leaf: int((g != 0).sum()) for leaf, g in av_grads.items()}
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"avatar4k step: losses {losses}")
+    per_stage = [stage_ms(marks) for marks in step_marks[AV_WARMUP:]]
+    step_ms = [sum(p.values()) for p in per_stage]
+    med_ms = statistics.median(step_ms)
+    av_profile = device_profile(lambda: avatar4k_step(av_params, av_opt, *av_args), AV_PROFILED)
+    emit({
+        "phase": "avatar4k step", "config": "avatar4k", "H": AV_HW, "W": AV_HW, "faces": av_faces, "bands": AV_BANDS,
+        "levels": [list(x.shape) for x in av_params[1]], "msi_tex": list(av_params[2].shape),
+        "rays": int(av["ray_o"].shape[0]), "warmup_steps": AV_WARMUP, "steps_timed": AV_STEPS,
+        "step_ms_median": med_ms, "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
+        "mpix_per_s": AV_HW * AV_HW / (med_ms * 1e-3) / 1e6,
+        **{f"{k}_ms_median": statistics.median(p[k] for p in per_stage) for k in AVATAR4K_STAGES},
+        "host_ms_per_call_median": statistics.median(host_s[AV_WARMUP:]) * 1e3,
+        "device_busy_ms_per_step": av_profile["device_busy_ms_per_step"] if av_profile else None,
+        "peak_mem_bytes": av_peak, "launches": av_launches, "launches_per_step": av_per_step,
+        "loss_first": losses[0], "loss_last": losses[-1], "nonzero_grad_entries": av_nonzero, "profile": av_profile,
+    })
+
+    # ...its kernels held against their plain versions on the step's own
+    # band-0 inputs (the current parameters): B1 under the viewport, B2 at
+    # K = 9, 6 (render, interpolate) and 16 (edge_grad, band and halo row),
+    # B3 on the banded edge_grad's bary x g rows, B4 on the mipmap
+    # backward's quad rows, captured from its launch.
+    v_av, levels_av, msi_av = av_params[0].detach(), [x.detach() for x in av_params[1]], av_params[2].detach()
+    vib_av = rast.broadcast_vi(av["vi"], 1)
+    b1["avatar4k_band0"] = b1_vs_plain("avatar4k band 0", v_av, av["vi"], hb, AV_HW, 0, AV_HW)
+    with torch.no_grad():
+        fg_av, mask_av, bary_av, idx_av = tt.map_row_bands(
+            lambda y0: avatar4k_band(v_av, av["vi"], av["vt"], levels_av, y0, hb, AV_HW), AV_HW, AV_BANDS, remat=False)
+        img_av = fg_av + avatar4k_background(av["ray_o"], av["ray_d"], msi_av, AV_HW) * (1.0 - mask_av)
+        g_av = 2.0 * img_av / img_av.numel()  # the loss's cotangent of the shaded image
+    b2_av = b2_vs_plain("avatar4k band 0", {9: _face_table(v_av, vib_av), 6: _face_table(av["vt"], vib_av)},
+                        idx_av[:, :hb])
+    rows_eg, idx_eg = banded._edge_grad_band_rows(v_av, vib_av, banded._pad_frame(img_av, g_av, bary_av, idx_av), 0,
+                                                  hb, AV_HW, 1e4)
+    b2_av.update(b2_vs_plain("avatar4k band 0 and halo", {16: _stencil_table(v_av, vib_av)}, idx_eg))
+    b3_av = b3_record("avatar4k band 0 edge_grad", rows_eg, idx_eg, av_faces)
+    b4_args, b4_launch = [], window_accum._window_accumulate_cuda
+
+    def b4_spy(*args):
+        b4_args.append(args)
+        return b4_launch(*args)
+
+    window_accum._window_accumulate_cuda = b4_spy
+    try:
+        lv = [x.clone().requires_grad_() for x in levels_av]
+        torch.autograd.grad(avatar4k_band(v_av, av["vi"], av["vt"], lv, 0, hb, AV_HW)[0], lv, g_av[:, :, :hb])
+    finally:
+        window_accum._window_accumulate_cuda = b4_launch
+    if len(b4_args) != 1:
+        raise AssertionError(f"avatar4k band 0: the mipmap backward launched B4 {len(b4_args)} times, expected once")
+    b4_av = b4_record("avatar4k band 0 mipmap", b4_args[0])
+    del b4_args, rows_eg
+
+    # ...the bands against the full frame: index, bary and uv bit for bit,
+    # and the banded edge_grad's gradient to v against the full frame's.
+    with torch.no_grad():
+        idx_full = tt.rasterize(v_av, av["vi"], AV_HW, AV_HW)
+        _, bary_full = tt.render(v_av, av["vi"], idx_full)
+        uv_full = tt.interpolate(av["vt"], av["vi"], idx_full, bary_full)
+
+        def band_uv(y0):
+            i = tt.rasterize(v_av, av["vi"], hb, AV_HW, y_offset=y0, full_height=AV_HW)
+            _, b = tt.render(v_av, av["vi"], i, y_offset=y0)
+            return i, b, tt.interpolate(av["vt"], av["vi"], i, b, y_offset=y0, full_height=AV_HW)
+
+        idx_bands, bary_bands, uv_bands = tt.map_row_bands(band_uv, AV_HW, AV_BANDS, remat=False)
+    torch.cuda.synchronize()
+    if not (torch.equal(idx_bands, idx_full) and torch.equal(bary_bands, bary_full) and torch.equal(uv_bands, uv_full)
+            and torch.equal(idx_av, idx_full) and torch.equal(bary_av, bary_full)):
+        raise AssertionError("avatar4k: the bands' index, bary or uv differ from the full frame's")
+    del bary_full, uv_full, bary_bands, uv_bands, idx_bands
+    vv = v_av.clone().requires_grad_()
+    (g_banded,) = torch.autograd.grad(tt.edge_grad_estimator_banded(vv, av["vi"], bary_av, fg_av, idx_av, AV_BANDS),
+                                      vv, g_av)
+    (g_full,) = torch.autograd.grad(tt.edge_grad_estimator(vv, av["vi"], bary_av, fg_av, idx_av), vv, g_av)
+    eg_err = rel_err(g_banded, g_full)
+    if not eg_err <= 1e-4:
+        raise AssertionError(f"avatar4k: the banded edge_grad's gradient differs from the full frame's by {eg_err}")
+    del fg_av, mask_av, bary_av, img_av, g_av, g_banded, g_full
+
+    # ...and the step's gradients without the band recompute.
+    remat = {}
+    for on in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        p = (v_av.clone().requires_grad_(), [x.clone().requires_grad_() for x in levels_av],
+             msi_av.clone().requires_grad_())
+        loss = avatar4k_loss(p, *av_args, remat=on)
+        remat[on] = (loss.item(), torch.autograd.grad(loss, [p[0], *p[1], p[2]]), torch.cuda.max_memory_allocated())
+    remat_err = max(rel_err(a, b) for a, b in zip(remat[True][1], remat[False][1]))
+    if abs(remat[True][0] - remat[False][0]) > 1e-6 * abs(remat[False][0]) or not remat_err <= 1e-4:
+        raise AssertionError(f"avatar4k: remat=True and remat=False differ (loss {remat[True][0]} vs "
+                             f"{remat[False][0]}, gradients by {remat_err} of their largest magnitude)")
+    emit({
+        "phase": "avatar4k checks", "config": "avatar4k", "coverage": (idx_full >= 0).float().mean().item(),
+        "bands_equal_full_frame": True, "edge_grad_banded_rel_err_vs_full_frame": eg_err,
+        "remat_loss": remat[True][0], "no_remat_loss": remat[False][0], "remat_grad_rel_err": remat_err,
+        "peak_mem_bytes_loss_and_grads": {"remat": remat[True][2], "no_remat": remat[False][2]},
+        "phase_seconds": time.perf_counter() - t_av,
+    })
+    del remat, idx_full
+
     # 14. The kernels, with the numbers of this run; times per fitting step
     # (B2: K=9 and K=6 in the forward, again in the backward, and K=16 in
     # edge_grad's backward; B3: K=9 in render's and edge_grad's backward,
@@ -912,7 +1106,8 @@ def main() -> int:
     def b3_inv_step(key):  # B3 at K=9 in render's and edge_grad's backward
         return 2 * b3_inv[9][key]
 
-    by_path = {"fit_step": main_launches, "inverse8_step": inv_launches, "wireframe": wire_launches}
+    by_path = {"fit_step": main_launches, "inverse8_step": inv_launches, "wireframe": wire_launches,
+               "avatar4k": av_launches}
 
     def paths(key):
         return {path: counts[key] for path, counts in by_path.items()}
@@ -935,24 +1130,26 @@ def main() -> int:
          "library_device_ms": b2_step("library_device_ms"),
          "inverse8_step": {k: b2_step(k, b2_inv) for k in b2_keys},
          "per_launch": {image: {k_dim: {k: r[k] for k in b2_keys if k != "plain_ms"} for k_dim, r in recs.items()}
-                        for image, recs in (("textured", b2), ("inverse8", b2_inv))}},
+                        for image, recs in (("textured", b2), ("inverse8", b2_inv), ("avatar4k_band0", b2_av))}},
         {"name": "B3 segment_rows._accumulate_kernel", "route": "cuda",
          "source": "drtk_tpu_torch/csrc/scatter_rows.cu", "replaces": "drtk_tpu/ops/segment_rows.py:129",
          "launches": main_launches["B3 scatter_rows"], "launches_per_step": 3,
-         "max_abs_err": max(r["max_abs_err"] for recs in (b3, b3_inv) for r in recs.values()),
+         "max_abs_err": max(r["max_abs_err"] for recs in (b3, b3_inv, {9: b3_av}) for r in recs.values()),
          "ms": b3_step("ms"), "device_ms": b3_step("device_ms"), "plain_ms": b3_step("plain_ms"),
          "bound_ms": b3_step("bound_ms"), "bound_by": "bytes", "library_ms": b3_step("library_ms"),
          "library_device_ms": b3_step("library_device_ms"),
          "inverse8_step": {k: b3_inv_step(k) for k in b3_keys},
          "per_launch": {image: {k_dim: {k: r[k] for k in b3_keys} for k_dim, r in recs.items()}
-                        for image, recs in (("textured", b3), ("inverse8", b3_inv))}},
+                        for image, recs in (("textured", b3), ("inverse8", b3_inv),
+                                            ("avatar4k_edge_grad_band0", {9: b3_av}))}},
         {"name": "B4 window_accum._window_kernel", "route": "cuda",
          "source": "drtk_tpu_torch/csrc/window_accum.cu", "replaces": "drtk_tpu/ops/window_accum.py:92",
          "launches": main_launches["B4 window_accum"], "launches_per_step": 1,
-         "max_abs_err": max(b4["max_abs_err"], b4_inv["max_abs_err"]),
+         "max_abs_err": max(b4["max_abs_err"], b4_inv["max_abs_err"], b4_av["max_abs_err"]),
          "ms": b4["ms"], "device_ms": b4["device_ms"], "plain_ms": b4["plain_ms"], "bound_ms": b4["bound_ms"],
          "bound_by": "bytes", "library_ms": b4["library_ms"], "library_device_ms": b4["library_device_ms"],
-         "inverse8_step": {k: b4_inv[k] for k in b3_keys}},
+         "inverse8_step": {k: b4_inv[k] for k in b3_keys},
+         "avatar4k_band0": {k: b4_av[k] for k in b3_keys + ("max_abs_err", "taps", "live_taps", "rows_hw")}},
         {"name": "B5 rasterize_pallas._lines_tile_kernel", "route": "cuda",
          "source": "drtk_tpu_torch/csrc/rasterize_lines.cu", "replaces": "drtk_tpu/ops/rasterize_pallas.py:715",
          "launches": wire_launches["B5 rasterize_lines"], "launches_per_step": 1,

@@ -6,7 +6,12 @@ with the same public signatures and contracts, forward and backward:
 ``loss.backward()`` through the public ops reaches the world-space
 vertices, the cameras, the uvs and the texture; :func:`fit_step` runs one
 fitting step of the textured pipeline and :func:`inverse8_step` one step of
-the multi-view inverse-rendering fit. On CUDA tensors the rasterizer's
+the multi-view inverse-rendering fit. Row-tile viewports of rasterize,
+render and interpolate, mipmapped anisotropic shading
+(:func:`mipmap_grid_sample`), Multi-Sphere Image backgrounds (:func:`msi`)
+and row banding (:func:`map_row_bands`, :func:`edge_grad_estimator_banded`)
+make up :func:`avatar4k_step`, one step of the 4K avatar fit. On CUDA
+tensors the rasterizer's
 resolve (B1), its wireframe resolve (B5), the per-pixel face-row gather
 (B2), the pixel-to-face row accumulation (B3) and the texture-gradient
 scatter (B4) run as hand-written kernels for Hopper (sm_90a), built with
@@ -21,13 +26,18 @@ from drtk_tpu_torch.ops.edge_grad import edge_grad_estimator, edge_grad_image
 from drtk_tpu_torch.ops.edge_grad_ref import edge_grad_estimator_ref
 from drtk_tpu_torch.ops.grid_sample import grid_sample
 from drtk_tpu_torch.ops.interpolate import interpolate, interpolate_ref
+from drtk_tpu_torch.ops.mipmap_grid_sample import mipmap_grid_sample, mipmap_grid_sample_ref
+from drtk_tpu_torch.ops.msi import msi
 from drtk_tpu_torch.ops.rasterize import rasterize, rasterize_with_depth
 from drtk_tpu_torch.ops.render import render, render_ref
-from drtk_tpu_torch.pipeline import fit_step, inverse8_step, render_multiview
+from drtk_tpu_torch.parallel.banded import edge_grad_estimator_banded, map_row_bands
+from drtk_tpu_torch.pipeline import avatar4k_step, fit_step, inverse8_step, render_multiview
 from drtk_tpu_torch.transform import transform, transform_with_v_cam
 
 __all__ = [
+    "avatar4k_step",
     "edge_grad_estimator",
+    "edge_grad_estimator_banded",
     "edge_grad_estimator_ref",
     "edge_grad_image",
     "fit_step",
@@ -36,6 +46,10 @@ __all__ = [
     "interpolate_ref",
     "inverse8_step",
     "kernel_launch_counts",
+    "map_row_bands",
+    "mipmap_grid_sample",
+    "mipmap_grid_sample_ref",
+    "msi",
     "rasterize",
     "rasterize_with_depth",
     "render",

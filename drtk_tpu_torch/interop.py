@@ -21,6 +21,7 @@ __all__ = ["adam_state_from_optax", "resolve_device", "scene_from_numpy", "to_nu
 _RANKS = {
     "v": (3,), "vi": (2, 3), "vt": (3,), "tex": (4,), "weight": (4,), "v_world": (3,), "tex_gt": (4,),
     "campos": (2,), "camrot": (3,), "focal": (3,), "princpt": (2,), "K": (3,), "Rt": (3,),
+    "levels": (4,), "msi_tex": (4,), "ray_o": (2,), "ray_d": (2,),
 }
 
 
@@ -48,29 +49,40 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> dict[st
             multi-view fit's world-space vertices and target texture), and
             the cameras, float: ``campos`` [N, 3], ``camrot`` [N, 3, 3],
             ``focal`` [N, 2, 2], ``princpt`` [N, 2], ``K`` [N, 3, 3],
-            ``Rt`` [N, 3, 4].
+            ``Rt`` [N, 3, 4]; ``levels``, a list of [N, C, H_i, W_i] float
+            mip levels, ``msi_tex`` [L, 4, H, W] float (an MSI
+            background's texture) and ``ray_o``, ``ray_d`` [R, 3] float
+            (its rays).
             Float arrays keep their dtype; ``vi`` must be int32, as the
             JAX package requires.
         device: target device; "cuda" raises when CUDA is absent.
 
     Returns:
-        A dict with the same keys holding tensors.
+        A dict with the same keys holding tensors (``levels``: a list).
     """
     dev = resolve_device(device)
     out = {}
     for key, arr in arrays.items():
         if key not in _RANKS:
             raise ValueError(f"scene_from_numpy: unknown scene array {key!r}")
-        arr = np.asarray(arr)
-        if arr.ndim not in _RANKS[key]:
-            raise ValueError(f"scene_from_numpy: {key} has shape {arr.shape}")
-        if key == "vi":
-            if arr.dtype != np.int32:
-                raise ValueError(f"scene_from_numpy: expected int32 vi, got {arr.dtype}")
-        elif arr.dtype.kind != "f":
-            raise ValueError(f"scene_from_numpy: expected float {key}, got {arr.dtype}")
-        out[key] = torch.from_numpy(np.array(arr, order="C")).to(dev)  # a copy: jax arrays are read-only
+        if key == "levels":
+            out[key] = [_tensor(key, lvl, dev) for lvl in arr]
+        else:
+            out[key] = _tensor(key, arr, dev)
     return out
+
+
+def _tensor(key: str, arr, dev: torch.device) -> torch.Tensor:
+    """One scene array, checked against its rank and dtype, as a tensor."""
+    arr = np.asarray(arr)
+    if arr.ndim not in _RANKS[key]:
+        raise ValueError(f"scene_from_numpy: {key} has shape {arr.shape}")
+    if key == "vi":
+        if arr.dtype != np.int32:
+            raise ValueError(f"scene_from_numpy: expected int32 vi, got {arr.dtype}")
+    elif arr.dtype.kind != "f":
+        raise ValueError(f"scene_from_numpy: expected float {key}, got {arr.dtype}")
+    return torch.from_numpy(np.array(arr, order="C")).to(dev)  # a copy: jax arrays are read-only
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -15,9 +15,11 @@ the vertices through interpolate's VJP with ``bary_img`` detached:
 
 The stencil's per-pixel triangle corners and face normals arrive as one
 16-float row through kernel B2; the stencil's elementwise math is torch ops,
-as it is plain XLA in the JAX package. The row-tile arguments of the JAX
-backward (``y_offset``, ``full_height``) belong to the banding and SPMD
-slice and are not ported.
+as it is plain XLA in the JAX package. The backward takes a row tile
+(``y_offset``, ``full_height``), as the JAX backward does: the pixel grid
+is the global rows, and stencil centres on the frame's last row are
+dropped. :func:`~drtk_tpu_torch.parallel.banded.edge_grad_estimator_banded`
+runs it band by band.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 
 from drtk_tpu_torch.ops.math import autocast_f32, epsclamp
 from drtk_tpu_torch.ops.rasterize import broadcast_vi
-from drtk_tpu_torch.ops.render import _face_table, _pixels_to_verts
+from drtk_tpu_torch.ops.render import _face_table, _pixel_grid, _pixels_to_verts
 from drtk_tpu_torch.ops.segment_rows import gather_rows_by_index
 
 __all__ = ["edge_grad_estimator", "edge_grad_image"]
@@ -101,9 +103,24 @@ def _face_normals(v_pix: torch.Tensor, vi: torch.Tensor) -> torch.Tensor:
     return _safe_normalize(torch.linalg.cross(p0 - p2, p1 - p0, dim=-1))
 
 
-def _edge_grad_backward(v_pix, vi, img, index_img, grad_output, max_dp_dr: float, impl="auto"):
+def _stencil_table(v_pix: torch.Tensor, vi: torch.Tensor) -> torch.Tensor:
+    """[N, F, 16] face rows of the CRD stencil: the corners (9), the normal
+    (3) and 4 zeros."""
+    n = v_pix.shape[0]
+    return torch.cat(
+        [_face_table(v_pix, vi), _face_normals(v_pix, vi), v_pix.new_zeros((n, vi.shape[1], 4))], dim=-1
+    )
+
+
+def _edge_grad_backward(
+    v_pix, vi, img, index_img, grad_output, max_dp_dr: float, impl="auto", y_offset: int = 0,
+    full_height: int | None = None,
+):
     """The image-space gradient [N, 3, H, W] (``drtk_tpu/ops/edge_grad.py:
-    114-276``, full frame)."""
+    114-276``). With ``full_height``, the block holds rows
+    ``[y_offset, y_offset + H)`` of a ``full_height``-row frame: the pixel
+    grid takes the global rows and stencil centres on global row
+    ``full_height - 1`` are dropped (``:259-264``)."""
     dtype = v_pix.dtype
     n, c, h, w = img.shape
     sh, sw = h - 1, w - 1
@@ -123,10 +140,7 @@ def _edge_grad_backward(v_pix, vi, img, index_img, grad_output, max_dp_dr: float
     # One packed 16-float row per pixel (corners, normal, 4 zeros) through
     # kernel B2; background pixels read zero rows, i.e. degenerate
     # triangles that cover nothing. The R and D rows are shifted slices.
-    table = torch.cat(
-        [_face_table(v_pix, vi), _face_normals(v_pix, vi), v_pix.new_zeros((n, vi.shape[1], 4))], dim=-1
-    )
-    rows_full = gather_rows_by_index(table, idx, impl)  # [N, H, W, 16]
+    rows_full = gather_rows_by_index(_stencil_table(v_pix, vi), idx, impl)  # [N, H, W, 16]
     rows_c = rows_full[:, :sh, :sw]
     rows_r = rows_full[:, :sh, 1:]
     rows_d = rows_full[:, 1:, :sw]
@@ -134,8 +148,7 @@ def _edge_grad_backward(v_pix, vi, img, index_img, grad_output, max_dp_dr: float
     pts_r = rows_r[..., :9].reshape(rows_r.shape[:-1] + (3, 3))
     pts_d = rows_d[..., :9].reshape(rows_d.shape[:-1] + (3, 3))
 
-    px = torch.arange(sw, device=v_pix.device).to(dtype)[None, None, :]
-    py = torch.arange(sh, device=v_pix.device).to(dtype)[None, :, None]
+    px, py = _pixel_grid(sh, sw, y_offset, dtype, v_pix.device)
 
     def in_tri(pts, ox, oy):
         return _pix_in_tri(pts[..., 0, :2], pts[..., 1, :2], pts[..., 2, :2], px + ox, py + oy)
@@ -189,6 +202,9 @@ def _edge_grad_backward(v_pix, vi, img, index_img, grad_output, max_dp_dr: float
     gvc = torch.stack([gvc_x, gvc_y, gvc_zx + gvc_zy], dim=1).to(dtype)  # [N, 3, sh, sw]
     gvr = torch.stack([gvr_x, zero, gvr_z], dim=1).to(dtype)
     gvd = torch.stack([zero, gvd_y, gvd_z], dim=1).to(dtype)
+    if full_height is not None:
+        row_ok = ((torch.arange(sh, device=v_pix.device) + y_offset) < (full_height - 1)).to(dtype)[None, None, :, None]
+        gvc, gvr, gvd = gvc * row_ok, gvr * row_ok, gvd * row_ok
 
     # Negated adds into the three stencil positions.
     out = torch.zeros((n, 3, h, w), dtype=dtype, device=v_pix.device)

@@ -85,6 +85,16 @@ def _gather_2d(img: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor, zero_fill:
     return out
 
 
+def _quad_table(t: torch.Tensor) -> torch.Tensor:
+    """A channels-last texture [..., H, W, C] beside its x-, y- and
+    xy-shifted copies, zero past the last column and row: [..., H, W, 4C],
+    so that one row holds a bilinear tap's 2x2 texels."""
+    tx1 = torch.cat([t[..., 1:, :], torch.zeros_like(t[..., :1, :])], -2)
+    ty1 = torch.cat([t[..., 1:, :, :], torch.zeros_like(t[..., :1, :, :])], -3)
+    txy = torch.cat([ty1[..., 1:, :], torch.zeros_like(t[..., :1, :])], -2)
+    return torch.cat([t, tx1, ty1, txy], -1)
+
+
 def _cubic_weights(t: torch.Tensor, a: float = -0.75):
     """Cubic convolution weights for the taps at offsets -1, 0, 1, 2."""
     t2 = t * t
@@ -132,10 +142,7 @@ def _grid_sample_impl(input, grid, mode, padding_mode, align_corners, impl):
             bx = torch.clamp(ix0, 0, w - 1)
             by = torch.clamp(iy0, 0, h - 1)
         hq, wq = t.shape[1], t.shape[2]
-        tx1 = torch.cat([t[:, :, 1:], torch.zeros_like(t[:, :, :1])], 2)
-        ty1 = torch.cat([t[:, 1:], torch.zeros_like(t[:, :1])], 1)
-        txy = torch.cat([ty1[:, :, 1:], torch.zeros_like(t[:, :, :1])], 2)
-        quad = torch.cat([t, tx1, ty1, txy], -1).reshape(n, hq * wq, 4 * c)
+        quad = _quad_table(t).reshape(n, hq * wq, 4 * c)
 
         rows = row_gather(quad, (by * wq + bx).reshape(n, -1), (hq, wq), impl, _tap_grid(by))
         rows = rows.reshape(tuple(ix0.shape) + (4, c))

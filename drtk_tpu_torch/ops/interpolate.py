@@ -16,6 +16,9 @@ Background pixels contribute nothing: the sweep is a constant.
 
 from __future__ import annotations
 
+import functools
+import operator
+
 import numpy as np
 import torch
 
@@ -29,9 +32,11 @@ __all__ = ["interpolate", "interpolate_ref"]
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
 
-def _sweep_pattern(height: int, width: int, channels: int, dtype, device) -> torch.Tensor:
-    """Background sweep [C, H, W]: channel c holds ``(x*2+1)/W - 1`` when c
-    is even and ``(y*2+1)/H - 1`` when c is odd.
+@functools.lru_cache(maxsize=64)
+def _sweep_vector(size: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``(arange(size) * 2 + 1) / size - 1`` on ``device``, cached per
+    (size, dtype, device), so a forward copies nothing from the host after
+    its first call. Callers only read it.
 
     Built in numpy, in the dtype and op order of the JAX package's sweep,
     and then copied to the device. The JAX package builds it in numpy
@@ -40,14 +45,25 @@ def _sweep_pattern(height: int, width: int, channels: int, dtype, device) -> tor
     if dtype not in _NP_DTYPE:
         raise TypeError(f"interpolate: no background sweep for {dtype}")
     t = _NP_DTYPE[dtype]
-    sx = (np.arange(width, dtype=t) * t(2) + t(1)) / t(width) - t(1)
-    sy = (np.arange(height, dtype=t) * t(2) + t(1)) / t(height) - t(1)
-    img_x = torch.from_numpy(sx).to(device)[None, :].expand(height, width)
-    img_y = torch.from_numpy(sy).to(device)[:, None].expand(height, width)
+    return torch.from_numpy((np.arange(size, dtype=t) * t(2) + t(1)) / t(size) - t(1)).to(device)
+
+
+def _sweep_pattern(
+    height: int, width: int, channels: int, dtype, device, y_offset: int = 0, full_height: int | None = None
+) -> torch.Tensor:
+    """Background sweep [C, H, W]: channel c holds ``(x*2+1)/W - 1`` when c
+    is even and ``(y*2+1)/F - 1`` when c is odd, F the frame's height
+    (``full_height``, default ``height``) and y the global row: rows
+    ``[y_offset, y_offset + height)`` of the full frame's sweep, bit for
+    bit (``drtk_tpu/ops/interpolate.py:81-105``)."""
+    device = torch.device(device)
+    frame_h = height if full_height is None else full_height
+    img_x = _sweep_vector(width, dtype, device)[None, :].expand(height, width)
+    img_y = _sweep_vector(frame_h, dtype, device)[y_offset : y_offset + height, None].expand(height, width)
     return torch.stack([img_x if c % 2 == 0 else img_y for c in range(channels)], dim=0)
 
 
-def _interpolate_fwd_math(vert_attributes, vi, index_img, bary_img, impl="auto"):
+def _interpolate_fwd_math(vert_attributes, vi, index_img, bary_img, impl="auto", y_offset=0, full_height=None):
     n, h, w = index_img.shape
     c = vert_attributes.shape[-1]
     mask = index_img >= 0
@@ -57,16 +73,16 @@ def _interpolate_fwd_math(vert_attributes, vi, index_img, bary_img, impl="auto")
     ab = attrs * bary
     out = (ab[..., 0, :] + ab[..., 1, :]) + ab[..., 2, :]  # [N, H, W, C]
     out = out.movedim(-1, 1)  # [N, C, H, W]
-    sweep = _sweep_pattern(h, w, c, vert_attributes.dtype, vert_attributes.device)[None]
+    sweep = _sweep_pattern(h, w, c, vert_attributes.dtype, vert_attributes.device, y_offset, full_height)[None]
     return torch.where(mask[:, None], out, sweep)
 
 
 class _Interpolate(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, vert_attributes, vi, index_img, bary_img, impl):
+    def forward(ctx, vert_attributes, vi, index_img, bary_img, impl, y_offset, full_height):
         ctx.save_for_backward(vert_attributes, vi, index_img, bary_img)
         ctx.impl = impl
-        return _interpolate_fwd_math(vert_attributes, vi, index_img, bary_img, impl)
+        return _interpolate_fwd_math(vert_attributes, vi, index_img, bary_img, impl, y_offset, full_height)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -86,7 +102,7 @@ class _Interpolate(torch.autograd.Function):
             contrib = (bary[..., None] * g[..., None, :]).reshape(n, h, w, 3 * c)
             grad_attr = _pixels_to_verts(contrib, index_img, vi, vert_attributes.shape[1], ctx.impl)
             grad_attr = grad_attr.to(vert_attributes.dtype)
-        return grad_attr, None, None, grad_bary, None
+        return grad_attr, None, None, grad_bary, None, None, None
 
 
 def interpolate(
@@ -96,6 +112,8 @@ def interpolate(
     bary_img: torch.Tensor,
     v_pix: torch.Tensor | None = None,
     impl: str = "auto",
+    y_offset: int = 0,
+    full_height: int | None = None,
 ) -> torch.Tensor:
     """Linearly interpolate vertex attributes over rasterized pixels.
 
@@ -110,6 +128,13 @@ def interpolate(
             here, and its gradient is zero (none is returned), as in JAX.
         impl: "auto" gathers the face rows with kernel B2 on CUDA tensors;
             "plain" uses the plain gather on any device.
+        y_offset, full_height: a row-tile viewport, as for
+            :func:`~drtk_tpu_torch.ops.rasterize.rasterize`: when the block
+            holds rows ``[y_offset, y_offset + H)`` of a
+            ``full_height``-row frame, the background sweep takes the global
+            rows, so the block equals those rows of the full-frame call bit
+            for bit. Without ``full_height`` the block is its own frame and
+            ``y_offset`` is ignored, as in the JAX package.
 
     Returns:
         [N, C, H, W] interpolated image. Background pixels hold the -1..1
@@ -125,7 +150,16 @@ def interpolate(
     vi = broadcast_vi(vi, vert_attributes.shape[0])
     if bary_img.ndim != 4 or bary_img.shape[1] != 3:
         raise ValueError(f"interpolate: expected bary_img [N, 3, H, W], got {tuple(bary_img.shape)}")
-    return _Interpolate.apply(vert_attributes, vi, index_img, bary_img, impl)
+    if full_height is None:
+        y_offset = 0
+    else:
+        y_offset, full_height = operator.index(y_offset), operator.index(full_height)
+        if y_offset < 0 or y_offset + index_img.shape[1] > full_height:
+            raise ValueError(
+                f"interpolate: rows [{y_offset}, {y_offset + index_img.shape[1]}) do not lie in a frame of "
+                f"{full_height} rows"
+            )
+    return _Interpolate.apply(vert_attributes, vi, index_img, bary_img, impl, y_offset, full_height)
 
 
 def interpolate_ref(

@@ -19,6 +19,7 @@ with ``index_add_``.
 
 from __future__ import annotations
 
+import operator
 from typing import Tuple
 
 import torch
@@ -54,7 +55,15 @@ def _pixels_to_verts(rows, index_img, vi, num_v, impl="auto"):
     return out.reshape(n, num_v, c)
 
 
-def _render_fwd_math(v, vi, index_img, impl="auto"):
+def _pixel_grid(h: int, w: int, y_offset: int, dtype, device):
+    """Pixel centres (x [1, 1, W], y [1, H, 1]) of rows
+    ``[y_offset, y_offset + h)``: the global rows of a row-tile viewport."""
+    px = torch.arange(w, device=device).to(dtype)[None, None, :]
+    py = (torch.arange(h, device=device) + y_offset).to(dtype)[None, :, None]
+    return px, py
+
+
+def _render_fwd_math(v, vi, index_img, impl="auto", y_offset=0):
     dtype = v.dtype
     n, h, w = index_img.shape
     mask = index_img >= 0
@@ -71,8 +80,7 @@ def _render_fwd_math(v, vi, index_img, impl="auto"):
     den_raw = v01[..., 0] * v02[..., 1] - v01[..., 1] * v02[..., 0]
     den = epsclamp(den_raw)
 
-    px = torch.arange(w, device=v.device).to(dtype)[None, None, :]
-    py = torch.arange(h, device=v.device).to(dtype)[None, :, None]
+    px, py = _pixel_grid(h, w, y_offset, dtype, v.device)
     vp0p_x = px - p0[..., 0]
     vp0p_y = py - p0[..., 1]
 
@@ -94,7 +102,7 @@ def _render_fwd_math(v, vi, index_img, impl="auto"):
     return depth_img, bary_img.contiguous()
 
 
-def _render_bwd_math(v, vi, index_img, grad_depth_img, grad_bary_img, impl="auto"):
+def _render_bwd_math(v, vi, index_img, grad_depth_img, grad_bary_img, impl="auto", y_offset=0):
     """The clamp-aware VJP to ``v`` (``drtk_tpu/ops/render.py:118-241``)."""
     dtype = v.dtype
     n, h, w = index_img.shape
@@ -111,8 +119,7 @@ def _render_bwd_math(v, vi, index_img, grad_depth_img, grad_bary_img, impl="auto
     den = epsclamp(den_raw)
     den_clamped = den != den_raw
 
-    px = torch.arange(w, device=v.device).to(dtype)[None, None, :]
-    py = torch.arange(h, device=v.device).to(dtype)[None, :, None]
+    px, py = _pixel_grid(h, w, y_offset, dtype, v.device)
     vp0p_x = px - p0[..., 0]
     vp0p_y = py - p0[..., 1]
 
@@ -164,22 +171,22 @@ def _render_bwd_math(v, vi, index_img, grad_depth_img, grad_bary_img, impl="auto
 
 class _Render(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, v, vi, index_img, impl):
+    def forward(ctx, v, vi, index_img, impl, y_offset):
         ctx.save_for_backward(v, vi, index_img)
-        ctx.impl = impl
-        return _render_fwd_math(v, vi, index_img, impl)
+        ctx.impl, ctx.y_offset = impl, y_offset
+        return _render_fwd_math(v, vi, index_img, impl, y_offset)
 
     @staticmethod
     def backward(ctx, grad_depth, grad_bary):
         v, vi, index_img = ctx.saved_tensors
         grad_v = None
         if ctx.needs_input_grad[0]:
-            grad_v = _render_bwd_math(v, vi, index_img, grad_depth, grad_bary, ctx.impl)
-        return grad_v, None, None, None
+            grad_v = _render_bwd_math(v, vi, index_img, grad_depth, grad_bary, ctx.impl, ctx.y_offset)
+        return grad_v, None, None, None, None
 
 
 def render(
-    v: torch.Tensor, vi: torch.Tensor, index_img: torch.Tensor, impl: str = "auto"
+    v: torch.Tensor, vi: torch.Tensor, index_img: torch.Tensor, impl: str = "auto", y_offset: int = 0
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Render depth and 3-D barycentric images from a rasterized index image.
 
@@ -189,6 +196,10 @@ def render(
         index_img: [N, H, W] int32 triangle index image (-1 = background).
         impl: "auto" gathers the face rows with kernel B2 on CUDA tensors;
             "plain" uses the plain gather on any device.
+        y_offset: global row of ``index_img``'s first row, for row-tile
+            rendering: the pixel grid is rows ``[y_offset, y_offset + H)``,
+            forward and backward, so a tile equals those rows of the
+            full-frame render bit for bit.
 
     Returns:
         (depth_img [N, H, W], bary_img [N, 3, H, W]); zeros at background.
@@ -200,7 +211,7 @@ def render(
     vi = broadcast_vi(vi, v.shape[0])
     if index_img.ndim != 3:
         raise ValueError(f"render: expected index_img of shape [N, H, W], got {tuple(index_img.shape)}")
-    return _Render.apply(v, vi, index_img, impl)
+    return _Render.apply(v, vi, index_img, impl, operator.index(y_offset))
 
 
 def render_ref(

@@ -71,10 +71,11 @@ def _window_accumulate_cuda(rows, iy, ix, out_h: int, out_w: int, rows_hw=None) 
         raise ValueError("window_accumulate: rows, iy and ix are on different devices")
     n, k_dim, p = rows.shape
     r_h, r_w = _rows_hw(rows_hw, p)
-    if n > _MAX_BATCH or out_h * out_w >= 2**31:
+    if n > _MAX_BATCH or out_h * out_w >= 2**31 or p >= 2**31:
         raise ValueError(
-            f"window_accumulate: the kernel takes at most {_MAX_BATCH} batches and tables of fewer than "
-            f"2**31 texels, got N={n}, table {out_h}x{out_w}"
+            f"window_accumulate: the kernel takes at most {_MAX_BATCH} batches, tables of fewer than 2**31 "
+            f"texels and fewer than 2**31 taps per batch (32-bit tap offsets), got N={n}, table {out_h}x{out_w}, "
+            f"P={p}"
         )
     iy = iy.contiguous()
     ix = ix.contiguous()

@@ -9,23 +9,38 @@ broadcast to every camera, ``transform`` to pixel space, the same pipeline
 with an rgb-plus-silhouette image, and the training step on it (squared
 error to a target image, one backward to the world vertices and the
 texture through the cameras, an Adam update).
+
+The 4K avatar fit of ``bench.py:bench_avatar4k``: a 4096^2 frame of the
+grid mesh rendered in row bands (``map_row_bands``, each band a bit-exact
+viewport recomputed in the backward), shaded with ``mipmap_grid_sample``
+from a mip pyramid at screen-space uv derivatives from finite differences,
+``edge_grad_estimator_banded``, an MSI background rendered at low
+resolution and upsampled, ``mean(img**2)``, and an Adam step over the
+vertices, the pyramid and the MSI texture.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from drtk_tpu_torch.interop import resolve_device
 from drtk_tpu_torch.ops.edge_grad import edge_grad_estimator
 from drtk_tpu_torch.ops.grid_sample import grid_sample
 from drtk_tpu_torch.ops.interpolate import interpolate
+from drtk_tpu_torch.ops.mipmap_grid_sample import mipmap_grid_sample
+from drtk_tpu_torch.ops.msi import msi
 from drtk_tpu_torch.ops.rasterize import rasterize
 from drtk_tpu_torch.ops.render import render
+from drtk_tpu_torch.parallel.banded import edge_grad_estimator_banded, map_row_bands
 from drtk_tpu_torch.transform import transform
 
 __all__ = [
-    "BACKWARD_STAGES", "FIT_STAGES", "INVERSE8_STAGES", "MULTIVIEW_STAGES", "STAGES", "fit_step",
-    "inverse8_step", "render_multiview", "render_textured", "stage_ms", "textured_loss",
+    "AVATAR4K_STAGES", "BACKWARD_STAGES", "FIT_STAGES", "INVERSE8_STAGES", "MULTIVIEW_STAGES", "STAGES",
+    "avatar4k_background", "avatar4k_band", "avatar4k_loss", "avatar4k_step", "fit_step", "inverse8_step",
+    "render_multiview", "render_textured", "stage_ms", "textured_loss",
 ]
 
 STAGES = ("rasterize", "render", "interpolate", "grid_sample", "mask", "edge_grad")
@@ -39,6 +54,9 @@ MULTIVIEW_STAGES = ("transform",) + STAGES
 # render_bwd ends when the gradient of the pixel-space vertices is ready,
 # transform_bwd when the world vertices' is; adam is the optimizer update.
 INVERSE8_STAGES = MULTIVIEW_STAGES + ("loss",) + BACKWARD_STAGES + ("transform_bwd", "adam")
+# The avatar4k step's marks: the forward to the loss, the backward (the band
+# recomputes included), the Adam update; one each per step.
+AVATAR4K_STAGES = ("forward", "backward", "adam")
 
 
 def _marker(stage_times: list | None):
@@ -321,6 +339,138 @@ def inverse8_step(
     optimizer.step()
     mark("adam")
     return loss.detach(), {"v_world": grads[0], "tex": grads[1]}
+
+
+def avatar4k_band(v, vi, vt, levels, y0: int, hb: int, h: int, impl: str = "auto", index_img=None):
+    """One row band of ``bench.bench_avatar4k``'s frame (``bench.py:
+    404-425``): rows ``[y0, y0 + hb)`` of the ``h x h`` frame rasterized,
+    rendered and the uvs interpolated as a viewport, the screen-space uv
+    Jacobian by finite differences of the detached uv image (the last
+    column's and row's differences zero, as ``jnp.pad`` pads), and
+    ``mipmap_grid_sample`` of the pyramid (bilinear, border, max_aniso 2,
+    clip_grad). With ``index_img`` [N, h, h], its rows stand in for the
+    rasterized ones. Returns (rgb * mask [N, 3, hb, h], mask [N, 1, hb, h],
+    bary [N, 3, hb, h], index [N, hb, h])."""
+    w = h
+    if index_img is None:
+        idx = rasterize(v, vi, hb, w, impl=impl, y_offset=y0, full_height=h)
+    else:
+        idx = index_img[:, y0 : y0 + hb]
+    _, bary = render(v, vi, idx, impl=impl, y_offset=y0)
+    vt_img = interpolate(vt, vi, idx, bary, impl=impl, y_offset=y0, full_height=h)
+    uv = vt_img.movedim(1, -1) * 2.0 - 1.0  # [N, hb, W, 2]
+    uv_sg = uv.detach()
+    dx = F.pad(uv_sg[:, :, 1:] - uv_sg[:, :, :-1], (0, 0, 0, 1))
+    dy = F.pad(uv_sg[:, 1:] - uv_sg[:, :-1], (0, 0, 0, 0, 0, 1))
+    vt_dxdy = torch.stack([dx, dy], dim=-2) * 0.5  # to 0..1 uv units
+    rgb = mipmap_grid_sample(
+        levels, uv, vt_dxdy, max_aniso=2, mode="bilinear", padding_mode="border", clip_grad=True, impl=impl
+    )
+    maskf = (idx != -1)[:, None].to(torch.float32)
+    return rgb * maskf, maskf, bary, idx
+
+
+def avatar4k_loss(params, vi, vt, ray_o, ray_d, h: int, n_bands: int = 4, remat: bool = True, device="cuda",
+                  impl: str = "auto", index_img: torch.Tensor | None = None,
+                  stage_times: list | None = None) -> torch.Tensor:
+    """The loss of ``bench.bench_avatar4k`` (``bench.py:401-432``), op for op.
+
+    Args:
+        params: ``(v [1, V, 3], levels, msi_tex [L, 4, Hm, Wm])``: the
+            pixel-space vertices, the mip pyramid (a list of [1, 3, s, s]),
+            the MSI texture.
+        vi: [F, 3] int32 faces; vt: [1, V, 2] uvs in [0, 1].
+        ray_o, ray_d: [bh*bh, 3] rays of the square MSI background.
+        h: the frame is h x h, rendered in ``n_bands`` bands of
+            :func:`avatar4k_band` through
+            :func:`~drtk_tpu_torch.parallel.banded.map_row_bands` (each
+            recomputed in the backward when ``remat``), then
+            :func:`~drtk_tpu_torch.parallel.banded.edge_grad_estimator_banded`.
+            The background, ``msi(..., sub_step_count=2)``, is upsampled
+            bilinearly to h x h (``F.interpolate``, ``align_corners=False``,
+            for ``jax.image.resize``) and fills the pixels no triangle
+            covers.
+        device, impl: as for :func:`render_textured`.
+        index_img: optional [N, h, h] int32 index image to use instead of
+            rasterizing, so that two implementations can be compared on the
+            same discrete structure.
+        stage_times: if a list is given (CUDA only), CUDA events are
+            appended at the start and after the loss ("forward"); read them
+            with :func:`stage_ms`.
+
+    Returns:
+        ``mean(img**2)``, a scalar.
+    """
+    v, levels, msi_tex = params
+    _check_devices("avatar4k_loss", device, {"v": v, "vi": vi, "vt": vt, "msi_tex": msi_tex, "ray_o": ray_o,
+                                             "ray_d": ray_d, "index_img": index_img,
+                                             **{f"levels[{i}]": t for i, t in enumerate(levels)}})
+    if index_img is not None and (tuple(index_img.shape) != (v.shape[0], h, h) or index_img.dtype != torch.int32):
+        raise ValueError(f"avatar4k_loss: expected an int32 index_img of shape {(v.shape[0], h, h)}")
+    if stage_times is not None and resolve_device(device).type != "cuda":
+        raise ValueError("avatar4k_loss: stage_times needs a CUDA device")
+    mark = _marker(stage_times)
+    mark("start")
+    bg_img = avatar4k_background(ray_o, ray_d, msi_tex, h)
+    hb = h // n_bands
+    fg, maskf, bary, idx = map_row_bands(lambda y0: avatar4k_band(v, vi, vt, levels, y0, hb, h, impl, index_img), h,
+                                         n_bands, remat)
+    fg = edge_grad_estimator_banded(v_pix=v, vi=vi, bary_img=bary, img=fg, index_img=idx, n_bands=n_bands,
+                                    impl=impl)
+    img = fg + bg_img * (1.0 - maskf)
+    loss = (img**2).mean()
+    mark("forward")
+    return loss
+
+
+def avatar4k_background(ray_o, ray_d, msi_tex, h: int) -> torch.Tensor:
+    """The avatar4k step's background [1, 3, h, h]: ``msi(..., sub_step_count
+    =2)`` on a square grid of rays, upsampled bilinearly (``F.interpolate``,
+    ``align_corners=False``, for ``jax.image.resize``)."""
+    bh = math.isqrt(ray_o.shape[0])
+    if bh * bh != ray_o.shape[0]:
+        raise ValueError(f"avatar4k_loss: expected a square grid of rays, got {ray_o.shape[0]}")
+    bg = msi(ray_o, ray_d, msi_tex, sub_step_count=2)
+    bg_img = bg[:, :3].reshape(1, bh, bh, 3).movedim(-1, 1)
+    return F.interpolate(bg_img, size=(h, h), mode="bilinear", align_corners=False, antialias=False)
+
+
+def avatar4k_step(params, optimizer: torch.optim.Optimizer, vi, vt, ray_o, ray_d, h: int, n_bands: int = 4,
+                  remat: bool = True, device="cuda", impl: str = "auto", stage_times: list | None = None,
+                  index_img: torch.Tensor | None = None):
+    """One training step of ``bench.bench_avatar4k`` (``bench.py:401-453``):
+    :func:`avatar4k_loss`, one backward to the vertices, the mip levels and
+    the MSI texture, and an update with ``optimizer``
+    (``torch.optim.Adam(params, lr=1e-3)`` for the bench's
+    ``optax.adam(1e-3)``).
+
+    Args:
+        params: ``(v, levels, msi_tex)`` as for :func:`avatar4k_loss`,
+            tensors that require gradients, updated in place.
+        optimizer: an optimizer over ``(v, *levels, msi_tex)``.
+        vi, vt, ray_o, ray_d, h, n_bands, remat, device, impl, index_img:
+            as for :func:`avatar4k_loss`.
+        stage_times: as for :func:`avatar4k_loss`, with "backward" and
+            "adam" added: :data:`AVATAR4K_STAGES`, once per step (the band
+            recomputes mark nothing).
+
+    Returns:
+        (loss, grads): the detached loss before the update, and the
+        gradients ``{"v": ..., "levels": [...], "msi_tex": ...}`` it applied.
+    """
+    v, levels, msi_tex = params
+    leaves = [v, *levels, msi_tex]
+    if not all(t.requires_grad for t in leaves):
+        raise ValueError("avatar4k_step: v, the levels and msi_tex must require gradients")
+    loss = avatar4k_loss(params, vi, vt, ray_o, ray_d, h, n_bands, remat, device, impl, index_img, stage_times)
+    mark = _marker(stage_times)
+    grads = torch.autograd.grad(loss, leaves)
+    mark("backward")
+    for p, g in zip(leaves, grads):
+        p.grad = g
+    optimizer.step()
+    mark("adam")
+    return loss.detach(), {"v": grads[0], "levels": list(grads[1:-1]), "msi_tex": grads[-1]}
 
 
 def stage_ms(stage_times: list) -> dict[str, float]:

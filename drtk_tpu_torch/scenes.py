@@ -2,8 +2,10 @@
 
 Copies of ``bench.make_scene`` (the textured grid mesh behind every
 throughput figure), ``__graft_entry__._scene`` (a soup of large,
-overlapping random triangles) and the scene of ``bench.bench_inverse8``
-(a world-space grid seen by a ring of pinhole cameras), seeded with
+overlapping random triangles), the scene of ``bench.bench_inverse8``
+(a world-space grid seen by a ring of pinhole cameras) and that of
+``bench.bench_avatar4k`` (the grid at 4096^2 with a mip pyramid and an MSI
+background), seeded with
 ``np.random.RandomState(seed)`` and drawn in the same order as there, so
 the two packages build identical scenes.
 """
@@ -15,8 +17,8 @@ import numpy as np
 from drtk_tpu_torch.interop import scene_from_numpy
 
 __all__ = [
-    "entry_scene", "entry_scene_arrays", "inverse8_scene_arrays", "make_scene", "make_scene_arrays",
-    "with_edge_flags",
+    "avatar4k_scene_arrays", "entry_scene", "entry_scene_arrays", "inverse8_scene_arrays", "make_scene",
+    "make_scene_arrays", "with_edge_flags",
 ]
 
 
@@ -93,6 +95,25 @@ def inverse8_scene_arrays(
         "v_world": v_world, "vi": vi, "vt": vt, "tex_gt": tex_gt,
         "campos": campos, "camrot": camrot, "focal": focal, "princpt": princpt,
     }
+
+
+def avatar4k_scene_arrays(h: int = 4096, gn: int = 226, bh: int = 256) -> dict:
+    """The scene of ``bench.bench_avatar4k`` (``bench.py:376-396``) as numpy
+    arrays: :func:`make_scene_arrays` at ``h x h`` (``v``, ``vi``, ``vt``,
+    ``tex``; 2*(gn-1)^2 = 101,250 triangles at gn=226), then from
+    ``RandomState(1)`` the mip ``levels`` (four of 3 x 512^2 down to
+    3 x 64^2, [1, 3, s, s] each) and ``msi_tex`` [8, 4, 64, 128], and the
+    MSI background's ``bh x bh`` unit rays from the origin, ``ray_o`` and
+    ``ray_d`` [bh*bh, 3]; float32 but ``vi``."""
+    arrays = make_scene_arrays(h, h, gn)
+    rng = np.random.RandomState(1)
+    levels = [rng.rand(1, 3, 512 >> i, 512 >> i).astype(np.float32) for i in range(4)]
+    msi_tex = rng.rand(8, 4, 64, 128).astype(np.float32)
+    ys, xs = np.meshgrid(np.linspace(-1, 1, bh), np.linspace(-1, 1, bh), indexing="ij")
+    ray_d = np.stack([xs, ys, np.ones_like(xs)], -1).reshape(-1, 3)
+    ray_d /= np.linalg.norm(ray_d, axis=-1, keepdims=True)
+    ray_d = ray_d.astype(np.float32)
+    return {**arrays, "levels": levels, "msi_tex": msi_tex, "ray_o": np.zeros_like(ray_d), "ray_d": ray_d}
 
 
 def with_edge_flags(vi: np.ndarray, flags=0x7) -> np.ndarray:

@@ -53,7 +53,12 @@ from drtk_tpu_torch.ops.rasterize import (
 )
 from drtk_tpu_torch.ops.row_gather import row_gather
 from drtk_tpu_torch.pipeline import fit_step, inverse8_step, render_textured
-from drtk_tpu_torch.scenes import entry_scene_arrays, inverse8_scene_arrays, make_scene_arrays, with_edge_flags
+from drtk_tpu_torch.ops.edge_grad import _stencil_table
+from drtk_tpu_torch.parallel import banded
+from drtk_tpu_torch.pipeline import avatar4k_band, avatar4k_step
+from drtk_tpu_torch.scenes import (
+    avatar4k_scene_arrays, entry_scene_arrays, inverse8_scene_arrays, make_scene_arrays, with_edge_flags,
+)
 
 
 @pytest.fixture(autouse=True)
@@ -1179,3 +1184,130 @@ def test_inverse8_step_kernels_match_plain(cuda_device):
     for name in ("v_world", "tex"):
         err = (grads[name] - grads_p[name]).abs().max()
         assert err <= 1e-4 * grads_p[name].abs().max(), name
+
+
+def test_window_accumulate_refuses_2_31_taps():
+    """B4's tap offsets are 32-bit: the wrapper refuses 2**31 taps per batch
+    before it allocates or builds (stride-0 views stand in for the tensors;
+    the check runs before the device is used)."""
+    taps = torch.zeros((), dtype=torch.int32).expand(1, 2**31)
+    rows = torch.zeros(()).expand(1, 12, 2**31)
+    with pytest.raises(ValueError, match="2\\*\\*31 taps"):
+        window_accum._window_accumulate_cuda(rows, taps, taps, 4, 4, (2**16, 2**15))
+
+
+AV_BAND = (2048, 64)  # rows [2048, 2112) of the avatar4k frame: a 64 x 4096 band
+
+
+@pytest.fixture(scope="module")
+def avatar4k_frame():
+    """The avatar4k scene at 4096^2 on the card (16^2 rays), with its full
+    frame's index and bary images."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA (run with -m cuda on the card)")
+    dev = torch.device("cuda")
+    s = tt.interop.scene_from_numpy(avatar4k_scene_arrays(4096, 226, 16), dev)
+    with torch.no_grad():
+        idx = tt.rasterize(s["v"], s["vi"], 4096, 4096)
+        _, bary = tt.render(s["v"], s["vi"], idx)
+    return s, idx, bary
+
+
+def _b4_close(args):
+    got = window_accum._window_accumulate_cuda(*args)
+    want = window_accum._window_accumulate_plain(*args[:5])
+    magnitude = window_accum._window_accumulate_plain(args[0].abs(), *args[1:5])
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= 1e-5 * want.abs() + 1e-6 * magnitude).all())
+    assert bool((want != 0).any())
+
+
+@pytest.mark.cuda
+def test_b4_matches_plain_on_a_mipmap_band_backward(avatar4k_frame, monkeypatch):
+    """The mipmap backward of one 64 x 4096 band of the avatar4k step: its
+    one B4 launch, captured, against the plain version on the same taps
+    (the [2T*hb, W] tap grid, 4 x 64 x 4096 taps of 12 floats)."""
+    s, _, _ = avatar4k_frame
+    y0, hb = AV_BAND
+    launch, captured = window_accum._window_accumulate_cuda, []
+
+    def spy(*args):
+        captured.append(args)
+        return launch(*args)
+
+    monkeypatch.setattr(window_accum, "_window_accumulate_cuda", spy)
+    levels = [x.clone().requires_grad_() for x in s["levels"]]
+    rgb = avatar4k_band(s["v"], s["vi"], s["vt"], levels, y0, hb, 4096)[0]
+    cot = torch.randn(rgb.shape, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.autograd.grad(rgb, levels, cot)
+    monkeypatch.undo()
+    assert len(captured) == 1
+    rows_kp, iy, ix, t_h, t_w, rows_hw = captured[0]
+    assert rows_kp.shape == (1, 12, 4 * hb * 4096) and rows_hw == (4 * hb, 4096) and (t_h, t_w) == (513, 961)
+    _b4_close(captured[0])
+
+
+@pytest.mark.cuda
+def test_b3_matches_plain_on_a_banded_edge_grad_band(avatar4k_frame):
+    """The bary x g rows of one band of the banded edge_grad (64 rows and
+    its halo row of the 4096^2 frame), K = 9, against the plain scatter."""
+    s, idx, bary = avatar4k_frame
+    y0, hb = AV_BAND
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    img = torch.rand((1, 3, 4096, 4096), generator=gen, device="cuda")
+    g = torch.randn((1, 3, 4096, 4096), generator=gen, device="cuda")
+    vib = broadcast_vi(s["vi"], 1)
+    rows, idx_b = banded._edge_grad_band_rows(s["v"], vib, banded._pad_frame(img, g, bary, idx), y0, hb, 4096, 1e4)
+    assert rows.shape == (1, hb + 1, 4096, 9) and bool((rows != 0).any())
+    f_cnt = vib.shape[1]
+    got = segment_rows.scatter_rows_to_faces(rows, idx_b, f_cnt)
+    want = segment_rows._scatter_rows_plain(rows, idx_b, f_cnt)
+    magnitude = segment_rows._scatter_rows_plain(rows.abs(), idx_b, f_cnt)
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= 1e-5 * want.abs() + 1e-6 * magnitude).all())
+
+
+@pytest.mark.cuda
+def test_gather_guard_nearest_its_limit(avatar4k_frame):
+    """Of the wrappers' 32-bit guards, B2's P*K is the one the avatar4k path
+    comes nearest: edge_grad's K = 16 rows over a whole 4096^2 frame and its
+    halo row (n_bands = 1) are 2**28 floats, 1/8 of the limit (B4's taps
+    there are 4 x 4096^2, 1/32 of theirs). At that shape the kernel runs
+    and equals the plain gather; 8x the pixels are refused."""
+    s, idx, _ = avatar4k_frame
+    vib = broadcast_vi(s["vi"], 1)
+    table = _stencil_table(s["v"], vib)
+    idx_halo = torch.cat([idx, torch.full_like(idx[:, :1], -1)], dim=1)  # 4097 x 4096
+    got = segment_rows.gather_rows_by_index(table, idx_halo)
+    assert torch.equal(got, segment_rows._gather_rows_plain(table, idx_halo))
+    big = torch.zeros((), dtype=torch.int32, device="cuda").expand(1, 4 * 4096, 2 * 4096)
+    with pytest.raises(ValueError, match="32-bit"):
+        segment_rows.gather_rows_by_index(table, big)
+
+
+@pytest.mark.cuda
+def test_avatar4k_step_on_the_card_matches_cpu(cuda_device):
+    """The avatar4k step at 256^2 (a 33 x 33 grid, 4 bands, levels 64^2 to
+    8^2, 32^2 rays) through the kernels against the same step with
+    device="cpu": loss to 1e-5, gradients to 1e-4 of their largest
+    magnitude, and the launches of one step."""
+    a = avatar4k_scene_arrays(256, 33, 32)
+    a["levels"] = [lvl[:, :, : 64 >> i, : 64 >> i].copy() for i, lvl in enumerate(a["levels"])]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s = tt.interop.scene_from_numpy(a, dev)
+        params = (s["v"].requires_grad_(), [x.requires_grad_() for x in s["levels"]], s["msi_tex"].requires_grad_())
+        opt = torch.optim.Adam([params[0], *params[1], params[2]], lr=1e-3)
+        tt.reset_kernel_launch_counts()
+        out[dev] = avatar4k_step(params, opt, s["vi"], s["vt"], s["ray_o"], s["ray_d"], 256, 4, device=dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert tt.kernel_launch_counts() == {
+                **NO_LAUNCHES, "B1 rasterize": 8, "B2 gather_rows": 28, "B3 scatter_rows": 8, "B4 window_accum": 4,
+            }
+    (loss_c, grads_c), (loss_k, grads_k) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(loss_k.cpu(), loss_c, rtol=1e-5, atol=0)
+    pairs = [("v", grads_k["v"], grads_c["v"]), ("msi_tex", grads_k["msi_tex"], grads_c["msi_tex"])]
+    pairs += [(f"levels[{i}]", k, c) for i, (k, c) in enumerate(zip(grads_k["levels"], grads_c["levels"]))]
+    for name, got, want in pairs:
+        assert (got.cpu() - want).abs().max() <= 1e-4 * want.abs().max(), name
