@@ -25,7 +25,20 @@ checked just after:
   viewport, B2, B3 (the banded edge_grad's rows) and B4 (the mipmap
   backward's taps) held against their plain versions on the step's own
   band-0 inputs, the bands against the full frame and the band recompute
-  against none.
+  against none;
+- on the inverse8 scene again, the training step through a lens (each
+  camera a Fisheye62 lens with its fov estimated once before the steps;
+  then a per-view list of pinhole, radial-tangential and fisheye lenses),
+  and the 8 views shaded with mipmaps as ``examples/04`` shades
+  (``render_mipmap_multiview``: the analytic uv Jacobian driving
+  ``mipmap_grid_sample`` from a 4-level pyramid of the texture), forward
+  and backward, each against the same path through the plain versions;
+- ``grid_scatter`` of the textured scene's 1024^2 render through its uv
+  image into a 3x512^2 texture (bilinear/border, bicubic/zeros), its one B4
+  launch per forward held against the plain version on the same taps and
+  the output against ``grid_scatter_ref`` in float64; and ``filter2d``
+  (Kaiser down and up by 2, a Lanczos low-pass) on the textured scene at
+  2048^2, with cuDNN's TF32 allowed, against ``filter2d_ref`` in float64.
 
 The face-row gather (B2), the pixel-to-face accumulation (B3) and the
 texture-gradient scatter (B4) are held against their plain versions on the
@@ -59,9 +72,11 @@ import time
 import numpy as np
 import torch
 
-# TF32 off for matrix products and cuDNN: nothing on this path should use
-# either, and with both off a stray library call cannot silently round f32
-# operands to 10 mantissa bits in the comparisons below.
+# TF32 off for matrix products and cuDNN: no kernel path should use either,
+# and with both off a stray library call cannot silently round f32 operands
+# to 10 mantissa bits in the comparisons below. The filter2d phase, whose
+# convolutions are cuDNN's, turns cuDNN's TF32 back on (PyTorch's default):
+# the op must keep float32 itself.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
@@ -88,6 +103,10 @@ CAMS = ("campos", "camrot", "focal", "princpt")
 # (101,250 triangles), 4 row bands, a 256^2 MSI ray grid; 2 warm-up steps, 5 timed, 2 profiled.
 AV_HW, AV_GN, AV_BH, AV_BANDS = 4096, 226, 256, 4
 AV_WARMUP, AV_STEPS, AV_PROFILED = 2, 5, 2
+# The per-view lens list of the lens list step, cycled over the inverse8 views.
+LENS_LIST, LENS_LIST_STEPS = ("pinhole", "radial-tangential", "fisheye"), 10
+MV_WARMUP, MV_CALLS = 2, 10  # mipmap views: calls before timing, timed calls
+GS_HW, GS_CALLS = 512, 10  # grid_scatter's output texture; timed calls of grid_scatter and filter2d
 
 
 def emit(record: dict) -> None:
@@ -385,17 +404,21 @@ def main() -> int:
         from drtk_tpu_torch.ops import rasterize as rast
         from drtk_tpu_torch.ops import grid_sample as gs
         from drtk_tpu_torch.ops import rasterize_cuda, segment_rows, window_accum
+        from drtk_tpu_torch.ops import filter2d_ref
         from drtk_tpu_torch.ops.edge_grad import _stencil_table
         from drtk_tpu_torch.ops.render import _face_table
         from drtk_tpu_torch.interop import scene_from_numpy
         from drtk_tpu_torch.parallel import banded
         from drtk_tpu_torch.pipeline import (
             AVATAR4K_STAGES, BACKWARD_STAGES, FIT_STAGES, INVERSE8_STAGES, STAGES, avatar4k_background, avatar4k_band,
-            avatar4k_loss, avatar4k_step, fit_step, inverse8_step, render_multiview, render_textured, stage_ms,
+            avatar4k_loss, avatar4k_step, fit_step, inverse8_step, render_mipmap_multiview, render_multiview,
+            render_textured, stage_ms,
         )
         from drtk_tpu_torch.scenes import (
-            avatar4k_scene_arrays, entry_scene, inverse8_scene_arrays, make_scene, with_edge_flags,
+            avatar4k_scene_arrays, box_pyramid, entry_scene, inverse8_lens_arrays, inverse8_scene_arrays, make_scene,
+            with_edge_flags,
         )
+        from drtk_tpu_torch.utils.geometry import face_dpdt
     except ImportError as err:
         print(f"chip_smoke: drtk_tpu_torch is not importable here ({err})", file=sys.stderr)
         return 3
@@ -853,80 +876,89 @@ def main() -> int:
     # 13. The main path of this slice: the inverse8 training step at full
     # size (8 views of 512^2, 12,800 triangles, a 3x256x256 texture, Adam
     # lr 1e-3), from bench.py's start: the vertices moved by 0.02 and a grey
-    # texture, against the image rendered once from the true ones.
-    with torch.no_grad():
-        img_gt, _ = render_multiview(inv["v_world"], inv["vi"], inv["vt"], inv["tex_gt"], cams, INV_HW, INV_HW)
-    inv_params = ((inv["v_world"] + 0.02).requires_grad_(), torch.full_like(inv["tex_gt"], 0.5).requires_grad_())
-    inv_opt = torch.optim.Adam(inv_params, lr=1e-3)
-    inv_args = (inv["vi"], inv["vt"], cams, img_gt, INV_HW, INV_HW)
+    # texture, against the image rendered once from the true ones through
+    # the same cameras; then held against the plain pipeline on the kernel's
+    # index image, each side from a copy of the current parameters with an
+    # optimizer of its own. Phase 16 runs it through lenses.
     inv_per_step = {"B1 rasterize": 1, "B2 gather_rows": 5, "B3 scatter_rows": 2, "B4 window_accum": 1,
                     "B5 rasterize_lines": 0}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    tt.reset_kernel_launch_counts()
-    step_marks, host_s, losses = [], [], []
-    for _ in range(WARMUP + STEPS):
-        marks = []
-        t0 = time.perf_counter()
-        loss, grads = inverse8_step(inv_params, inv_opt, *inv_args, stage_times=marks)
-        host_s.append(time.perf_counter() - t0)
-        step_marks.append(marks)
-        losses.append(loss)
-    torch.cuda.synchronize()
-    inv_launches = tt.kernel_launch_counts()
-    n_steps = WARMUP + STEPS
-    if inv_launches != {k: c * n_steps for k, c in inv_per_step.items()}:
-        raise AssertionError(f"inverse8 step: launches {inv_launches} over {n_steps} steps, expected {inv_per_step} "
-                             "per step")
-    peak = torch.cuda.max_memory_allocated()
-    losses = [x.item() for x in losses]
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"inverse8 step: the loss went from {losses[0]} to {losses[-1]}")
-    for leaf, g in grads.items():
-        if not bool(torch.isfinite(g).all()):
-            raise AssertionError(f"inverse8 step: grad_{leaf} is not finite")
-    per_stage = [stage_ms(marks) for marks in step_marks[WARMUP:]]
-    step_ms = [sum(p.values()) for p in per_stage]
-    med_ms = statistics.median(step_ms)
-    fwd_stages = INVERSE8_STAGES[: INVERSE8_STAGES.index("loss") + 1]
-    profile = device_profile(lambda: inverse8_step(inv_params, inv_opt, *inv_args), PROFILED_STEPS)
 
+    def multiview_step(label, step_cams, steps) -> tuple[dict, torch.Tensor, torch.Tensor]:
+        """The step's record, and the current vertices in pixel space and
+        their index image (the kernel's)."""
+        t_phase = time.perf_counter()
+        with torch.no_grad():
+            gt, _ = render_multiview(inv["v_world"], inv["vi"], inv["vt"], inv["tex_gt"], step_cams, INV_HW, INV_HW)
+        params = ((inv["v_world"] + 0.02).requires_grad_(), torch.full_like(inv["tex_gt"], 0.5).requires_grad_())
+        opt = torch.optim.Adam(params, lr=1e-3)
+        args = (inv["vi"], inv["vt"], step_cams, gt, INV_HW, INV_HW)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tt.reset_kernel_launch_counts()
+        marks_all, host_s, losses = [], [], []
+        for _ in range(WARMUP + steps):
+            marks = []
+            t0 = time.perf_counter()
+            loss, grads = inverse8_step(params, opt, *args, stage_times=marks)
+            host_s.append(time.perf_counter() - t0)
+            marks_all.append(marks)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        launches = tt.kernel_launch_counts()
+        if launches != {k: c * (WARMUP + steps) for k, c in inv_per_step.items()}:
+            raise AssertionError(f"{label}: launches {launches} over {WARMUP + steps} steps, expected {inv_per_step} "
+                                 "per step")
+        peak = torch.cuda.max_memory_allocated()
+        losses = [x.item() for x in losses]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"{label}: the loss went from {losses[0]} to {losses[-1]}")
+        for leaf, g in grads.items():
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"{label}: grad_{leaf} is not finite")
+        per_stage = [stage_ms(m) for m in marks_all[WARMUP:]]
+        step_ms = [sum(p.values()) for p in per_stage]
+        med_ms = statistics.median(step_ms)
+        fwd_stages = INVERSE8_STAGES[: INVERSE8_STAGES.index("loss") + 1]
+        profile = device_profile(lambda: inverse8_step(params, opt, *args), PROFILED_STEPS)
+        with torch.no_grad():
+            v_pix = tt.transform(params[0].expand(INV_VIEWS, -1, -1), **step_cams)
+        idx = tt.rasterize(v_pix, inv["vi"], INV_HW, INV_HW)
+        side = {}
+        for impl in ("auto", "plain"):
+            p = tuple(t.detach().clone().requires_grad_() for t in params)
+            side[impl] = inverse8_step(p, torch.optim.Adam(p, lr=1e-3), *args, index_img=idx, impl=impl)
+        (loss_k, grads_k), (loss_p, grads_p) = side["auto"], side["plain"]
+        loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+        grad_err = {leaf: rel_err(grads_k[leaf], grads_p[leaf]) for leaf in ("v_world", "tex")}
+        if loss_err > 1e-5 or not all(e <= 1e-4 for e in grad_err.values()):
+            raise AssertionError(f"{label}: the step differs from the plain pipeline's (loss {loss_err} relative, "
+                                 f"gradients {grad_err} of their largest magnitude)")
+        fov = step_cams.get("fov")
+        rec = {
+            "phase": label, "config": "inverse8", "distortion_mode": step_cams.get("distortion_mode"),
+            "fov": None if fov is None else fov.flatten().tolist(), "views": INV_VIEWS, "H": INV_HW, "W": INV_HW,
+            "faces": int(inv["vi"].shape[0]), "steps_timed": steps, "step_ms_median": med_ms,
+            "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
+            "mpix_per_s": INV_VIEWS * INV_HW * INV_HW / (med_ms * 1e-3) / 1e6,
+            "forward_ms_median": statistics.median(sum(p[k] for k in fwd_stages) for p in per_stage),
+            "backward_ms_median": statistics.median(
+                sum(p[k] for k in BACKWARD_STAGES + ("transform_bwd",)) for p in per_stage),
+            "host_ms_per_call_median": statistics.median(host_s[WARMUP:]) * 1e3,
+            "stage_ms_median": {k: statistics.median(p[k] for p in per_stage) for k in INVERSE8_STAGES},
+            "device_busy_ms_per_step": profile["device_busy_ms_per_step"] if profile else None,
+            "peak_mem_bytes": peak, "launches": launches, "launches_per_step": inv_per_step,
+            "loss_first": losses[0], "loss_last": losses[-1], "culled_vertices": int((v_pix[..., 2] == -1).sum()),
+            "coverage": (idx >= 0).float().mean().item(), "loss_rel_err_vs_plain": loss_err,
+            "grad_rel_err_vs_plain": grad_err, "profile": profile, "phase_seconds": time.perf_counter() - t_phase,
+        }
+        emit(rec)
+        return rec, v_pix, idx
+
+    inv_rec, inv_v_pix, idx_k = multiview_step("inverse8 step", cams, STEPS)
+    inv_launches = inv_rec["launches"]
     # ...its B1 launch held against the plain rasterizer on the same views
-    # (8 x 512^2, 12,800 triangles each), then the step held against the
-    # plain pipeline on the kernel's index image, each side from a copy of
-    # the current parameters with an optimizer of its own.
-    with torch.no_grad():
-        inv_v_pix = tt.transform(inv_params[0].expand(INV_VIEWS, -1, -1), **cams)
+    # (8 x 512^2, 12,800 triangles each).
     b1["inverse8"] = b1_vs_plain("inverse8", inv_v_pix, inv["vi"], INV_HW, INV_HW)
-    idx_k = tt.rasterize(inv_v_pix, inv["vi"], INV_HW, INV_HW)
-    side = {}
-    for impl in ("auto", "plain"):
-        p = tuple(t.detach().clone().requires_grad_() for t in inv_params)
-        side[impl] = inverse8_step(p, torch.optim.Adam(p, lr=1e-3), *inv_args, index_img=idx_k, impl=impl)
-    (loss_k, grads_k), (loss_p, grads_p) = side["auto"], side["plain"]
-    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    if loss_err > 1e-5:
-        raise AssertionError(f"inverse8 step: loss differs from the plain pipeline's by {loss_err} relative")
-    inv_grad_err = {}
-    for leaf in ("v_world", "tex"):
-        inv_grad_err[leaf] = (grads_k[leaf] - grads_p[leaf]).abs().max().item() / grads_p[leaf].abs().max().item()
-        if not inv_grad_err[leaf] <= 1e-4:
-            raise AssertionError(f"inverse8 step: grad_{leaf} differs from the plain pipeline's by "
-                                 f"{inv_grad_err[leaf]} of its largest magnitude")
-    emit({
-        "phase": "inverse8 step", "config": "inverse8", "views": INV_VIEWS, "H": INV_HW, "W": INV_HW,
-        "faces": int(inv["vi"].shape[0]), "steps_timed": STEPS, "step_ms_median": med_ms,
-        "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
-        "mpix_per_s": INV_VIEWS * INV_HW * INV_HW / (med_ms * 1e-3) / 1e6,
-        "forward_ms_median": statistics.median(sum(p[k] for k in fwd_stages) for p in per_stage),
-        "backward_ms_median": statistics.median(
-            sum(p[k] for k in BACKWARD_STAGES + ("transform_bwd",)) for p in per_stage),
-        "host_ms_per_call_median": statistics.median(host_s[WARMUP:]) * 1e3,
-        "stage_ms_median": {k: statistics.median(p[k] for p in per_stage) for k in INVERSE8_STAGES},
-        "peak_mem_bytes": peak, "launches": inv_launches, "launches_per_step": inv_per_step,
-        "loss_first": losses[0], "loss_last": losses[-1], "coverage": (idx_k >= 0).float().mean().item(),
-        "loss_rel_err_vs_plain": loss_err, "grad_rel_err_vs_plain": inv_grad_err, "profile": profile,
-    })
 
     # 13b. B2 vs plain on the inverse8 step's index image: 8 views of 512^2,
     # tables of 12,800 rows per view, the batch on blockIdx.y.
@@ -941,6 +973,222 @@ def main() -> int:
     # 8 views of 512^2, 12,800 faces, the 3x256x256 texture.
     b3_inv = b3_vs_plain("inverse8", idx_k, int(inv["vi"].shape[0]))
     b4_inv = b4_vs_plain("inverse8", inv_v_pix, inv["vi"], inv["vt"].expand(INV_VIEWS, -1, -1), inv["tex_gt"], idx_k)
+
+    # 16. The inverse8 step through a lens: every camera given a Fisheye62
+    # lens (scenes.INVERSE8_LENSES, jittered per view), its fov estimated once
+    # on the host before the steps, so that no step waits for the host; then
+    # a per-view list of pinhole, radial-tangential and fisheye lenses.
+    fish_coeff = torch.from_numpy(inverse8_lens_arrays("fisheye62", INV_VIEWS)).to(dev)
+    fish, _, _ = multiview_step("fisheye62 step", {**cams, "distortion_mode": "fisheye62",
+                                                   "distortion_coeff": fish_coeff,
+                                                   "fov": tt.utils.estimate_fisheye62_fov(fish_coeff)}, STEPS)
+    mixed_modes = [LENS_LIST[i % len(LENS_LIST)] for i in range(INV_VIEWS)]
+    mixed_coeff = torch.from_numpy(inverse8_lens_arrays(mixed_modes, INV_VIEWS)).to(dev)
+    mixed_fov = torch.cat([  # each row's own estimator; a pinhole row reads none
+        tt.utils.estimate_rt_fov(mixed_coeff[i : i + 1]) if m == "radial-tangential"
+        else tt.utils.estimate_fisheye_fov(mixed_coeff[i : i + 1]) for i, m in enumerate(mixed_modes)])
+    mixed, _, _ = multiview_step("lens list step", {**cams, "distortion_mode": mixed_modes,
+                                                    "distortion_coeff": mixed_coeff, "fov": mixed_fov}, LENS_LIST_STEPS)
+
+    # 17. Mipmapped views: the 8 inverse8 views shaded as examples/04 shades,
+    # the analytic uv Jacobian (screen_space_uv_derivative, B2 on its 3F-vertex
+    # tables of 3 x 6 and 3 x 3 floats per face) driving mipmap_grid_sample
+    # (max_aniso 4, border) of a 4-level box pyramid of the 3x256^2 texture;
+    # forward and backward of sum(img * w) to the world vertices and the levels.
+    t_phase = time.perf_counter()
+    mv_levels = [torch.from_numpy(x).to(dev) for x in box_pyramid(inv["tex_gt"].cpu().numpy(), 4)]
+    mv_w = torch.randn((INV_VIEWS, 4, INV_HW, INV_HW), generator=gen, device=dev)
+    mv_per_call = {"B1 rasterize": 1, "B2 gather_rows": 7, "B3 scatter_rows": 2, "B4 window_accum": 1,
+                   "B5 rasterize_lines": 0}
+
+    def mipmap_views(impl="auto", index_img=None, ev=None):
+        vw = inv["v_world"].detach().requires_grad_()
+        lv = [x.detach().requires_grad_() for x in mv_levels]
+        if ev:
+            ev[0].record()
+        out, idx = render_mipmap_multiview(vw, inv["vi"], inv["vt"], lv, cams, INV_HW, INV_HW, impl=impl,
+                                           index_img=index_img)
+        if ev:
+            ev[1].record()
+        loss = (out * mv_w).sum()
+        grads = torch.autograd.grad(loss, [vw, *lv])
+        if ev:
+            ev[2].record()
+        return out, loss.detach(), grads, idx
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tt.reset_kernel_launch_counts()
+    mv_events = []
+    for _ in range(MV_WARMUP + MV_CALLS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        mv_img, mv_loss, mv_grads, mv_idx = mipmap_views(ev=ev)
+        mv_events.append(ev)
+    torch.cuda.synchronize()
+    mv_launches = tt.kernel_launch_counts()
+    if mv_launches != {k: c * (MV_WARMUP + MV_CALLS) for k, c in mv_per_call.items()}:
+        raise AssertionError(f"mipmap views: launches {mv_launches}, expected {mv_per_call} per call")
+    mv_peak = torch.cuda.max_memory_allocated()
+    mv_fwd = [e[0].elapsed_time(e[1]) for e in mv_events[MV_WARMUP:]]
+    mv_all = [e[0].elapsed_time(e[2]) for e in mv_events[MV_WARMUP:]]
+    if mv_img.shape != (INV_VIEWS, 4, INV_HW, INV_HW) or not all(bool(torch.isfinite(x).all())
+                                                                   for x in (mv_img, *mv_grads)):
+        raise AssertionError("mipmap views: the image or a gradient is not finite, or the image has the wrong shape")
+    mv_profile = device_profile(lambda: mipmap_views(), PROFILED_STEPS)
+    # ...held against the plain pipeline on the kernel's index image, and B2
+    # against its plain version on the uv derivative's tables.
+    mv_side = {impl: mipmap_views(impl, mv_idx) for impl in ("auto", "plain")}
+    mv_loss_err = rel_err(mv_side["auto"][1], mv_side["plain"][1])
+    mv_grad_err = {name: rel_err(a, b) for name, a, b in zip(
+        ["v_world"] + [f"levels[{i}]" for i in range(len(mv_levels))], mv_side["auto"][2], mv_side["plain"][2])}
+    if mv_loss_err > 1e-5 or not all(e <= 1e-4 for e in mv_grad_err.values()):
+        raise AssertionError(f"mipmap views: differ from the plain pipeline (loss {mv_loss_err}, gradients "
+                             f"{mv_grad_err} of their largest magnitude)")
+    with torch.no_grad():
+        mv_v = inv["v_world"].expand(INV_VIEWS, -1, -1)
+        dpdt, vf = face_dpdt(mv_v, inv["vt"].expand(INV_VIEWS, -1, -1), inv["vi"], inv["vi"])
+        f3 = 3 * inv["vi"].shape[0]
+        vi_dis = rast.broadcast_vi(torch.arange(f3, dtype=torch.int32, device=dev).reshape(-1, 3), INV_VIEWS)
+        b2_mv = b2_vs_plain("mipmap views uv derivative", {
+            18: _face_table(dpdt[:, :, None].expand(-1, -1, 3, -1, -1).reshape(INV_VIEWS, f3, 6), vi_dis),
+            9: _face_table(vf.reshape(INV_VIEWS, f3, 3), vi_dis)}, mv_idx)
+    emit({
+        "phase": "mipmap views", "config": "inverse8", "views": INV_VIEWS, "H": INV_HW, "W": INV_HW,
+        "levels": [list(x.shape) for x in mv_levels], "max_aniso": 4, "calls_timed": MV_CALLS,
+        "forward_ms_median": statistics.median(mv_fwd), "step_ms_median": statistics.median(mv_all),
+        "step_ms_min": min(mv_all), "step_ms_max": max(mv_all),
+        "device_busy_ms_per_step": mv_profile["device_busy_ms_per_step"] if mv_profile else None,
+        "peak_mem_bytes": mv_peak, "launches": mv_launches, "launches_per_call": mv_per_call,
+        "coverage": (mv_idx >= 0).float().mean().item(), "loss_rel_err_vs_plain": mv_loss_err,
+        "grad_rel_err_vs_plain": mv_grad_err, "profile": mv_profile, "phase_seconds": time.perf_counter() - t_phase,
+    })
+    del mv_side, mv_grads, mv_img
+
+    # 18. grid_scatter: the textured scene's 1024^2 render scattered through
+    # its own uv image into a 3x512^2 texture, bilinear/border and
+    # bicubic/zeros: the forward is one B4 launch on the [T*H, W] tap grid,
+    # held against its plain version on the captured taps (and index_add_);
+    # the output against grid_scatter_ref in float64; the backward to the
+    # input and the grid.
+    with torch.no_grad():
+        gs_in, gs_idx = render_textured(v, vi, vt, tex, H, W)
+        _, gs_bary = tt.render(v, vi, gs_idx)
+        gs_grid = tt.interpolate(vt, vi, gs_idx, gs_bary).movedim(1, -1) * 2.0 - 1.0
+    gs_w = torch.randn((1, 3, GS_HW, GS_HW), generator=gen, device=dev)
+    gs, b4_gs, gs_launches = {}, {}, {}
+    for mode, pad in (("bilinear", "border"), ("bicubic", "zeros")):
+        t_phase = time.perf_counter()
+
+        def gs_fwd(mode=mode, pad=pad):
+            return tt.grid_scatter(gs_in, gs_grid, GS_HW, GS_HW, mode, pad)
+
+        def gs_step(mode=mode, pad=pad):
+            x, g = gs_in.detach().requires_grad_(), gs_grid.detach().requires_grad_()
+            return torch.autograd.grad((tt.grid_scatter(x, g, GS_HW, GS_HW, mode, pad) * gs_w).sum(), (x, g))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tt.reset_kernel_launch_counts()
+        fwd_ms = cuda_ms(gs_fwd, GS_CALLS)
+        step_ms = cuda_ms(gs_step, GS_CALLS)
+        torch.cuda.synchronize()
+        launches = tt.kernel_launch_counts()
+        if launches != {**{k: 0 for k in launches}, "B4 window_accum": 2 * (GS_CALLS + 2)}:
+            raise AssertionError(f"grid_scatter {mode}: launches {launches}, expected B4 once per forward")
+        peak = torch.cuda.max_memory_allocated()
+        profile = device_profile(gs_step, PROFILED_STEPS)
+        captured, launch = [], window_accum._window_accumulate_cuda
+
+        def b4_spy(*args):
+            captured.append(args)
+            return launch(*args)
+
+        window_accum._window_accumulate_cuda = b4_spy
+        try:
+            out = gs_fwd()
+        finally:
+            window_accum._window_accumulate_cuda = launch
+        b4_gs[mode] = b4_record(f"grid_scatter {mode} {pad}", captured[0])
+        ref_err = rel_err(out.double(), tt.grid_scatter_ref(gs_in.double(), gs_grid.double(), GS_HW, GS_HW, mode, pad))
+        grads = gs_step()
+        if not ref_err <= 1e-5 or not all(bool(torch.isfinite(g).all()) for g in grads):
+            raise AssertionError(f"grid_scatter {mode}: differs from grid_scatter_ref by {ref_err} of its largest "
+                                 "magnitude, or a gradient is not finite")
+        gs_launches[mode] = launches
+        gs[mode] = {
+            "phase": "grid_scatter", "mode": mode, "padding_mode": pad, "input": list(gs_in.shape),
+            "output": [GS_HW, GS_HW], "taps": captured[0][1].numel(), "live_taps": b4_gs[mode]["live_taps"],
+            "calls_timed": GS_CALLS, "forward_ms": fwd_ms, "step_ms": step_ms,
+            "device_busy_ms_per_step": profile["device_busy_ms_per_step"] if profile else None,
+            "peak_mem_bytes": peak, "launches": launches, "rel_err_vs_grid_scatter_ref_f64": ref_err,
+            "b4_device_ms": b4_gs[mode]["device_ms"], "b4_bound_ms": b4_gs[mode]["bound_ms"],
+            "index_add_device_ms": b4_gs[mode]["library_device_ms"], "profile": profile,
+            "phase_seconds": time.perf_counter() - t_phase,
+        }
+        emit(gs[mode])
+        del captured, out, grads
+
+    # 19. filter2d on the textured scene rendered at 2048^2: Kaiser (n_taps 6,
+    # alias_guard_band 0.5, bench.py:763-764) down x2 to 1024^2 and up again,
+    # then a Lanczos (n_taps 4) low-pass at freq_div 2; forward and the
+    # swap-construction backward of sum(out * w) to the image. No kernel of
+    # this port runs (the convolutions are cuDNN's); the op must keep float32
+    # with cuDNN's TF32 at PyTorch's default, allowed, as it is here.
+    t_phase = time.perf_counter()
+    with torch.no_grad():
+        sv2 = make_scene(2 * H, 2 * W, GN, device=dev)
+        f_in, _ = render_textured(*sv2, 2 * H, 2 * W)
+    del sv2
+    kaiser = tt.FilterOptions(n_taps=6, filter_type=tt.FilterType.Kaiser, alias_guard_band=0.5)
+    lanczos = tt.FilterOptions(n_taps=4, filter_type=tt.FilterType.Lanczos)
+    f_w = torch.randn(f_in.shape, generator=gen, device=dev)
+
+    def filter_chain(x, ops=tt, pad="reflection"):
+        y1 = ops.downsample(x, kaiser, 2, pad)
+        y2 = ops.upsample(y1, kaiser, 2, pad)
+        return y1, y2, ops.low_pass_filter(y2, lanczos, 2.0, pad)
+
+    def filter_step(x=f_in, ops=tt, pad="reflection"):
+        x = x.detach().requires_grad_()
+        return torch.autograd.grad((filter_chain(x, ops, pad)[2] * f_w.to(x.dtype)).sum(), x)[0]
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tt.reset_kernel_launch_counts()
+        f_fwd_ms = cuda_ms(lambda: filter_chain(f_in), GS_CALLS)
+        f_step_ms = cuda_ms(filter_step, GS_CALLS)
+        torch.cuda.synchronize()
+        f_launches = tt.kernel_launch_counts()
+        if any(f_launches.values()):
+            raise AssertionError(f"filter2d: launches {f_launches}, expected none")
+        f_peak = torch.cuda.max_memory_allocated()
+        f_profile = device_profile(filter_step, PROFILED_STEPS)
+        outs = filter_chain(f_in)
+        refs = filter_chain(f_in.double(), filter2d_ref)
+        f_fwd_err = [rel_err(o.double(), r) for o, r in zip(outs, refs)]
+        # the swap-construction gradient against the op in float64; under
+        # zeros padding, where it is the adjoint, against the reference's
+        # autograd in float64.
+        f_grad_err = rel_err(filter_step().double(), filter_step(f_in.double()))
+        f_zeros_err = rel_err(filter_step(pad="zeros").double(), filter_step(f_in.double(), filter2d_ref, "zeros"))
+        f_tf32_kept = torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    if not (max(f_fwd_err) <= 1e-5 and f_grad_err <= 1e-5 and f_zeros_err <= 1e-5 and f_tf32_kept):
+        raise AssertionError(f"filter2d: forward {f_fwd_err}, gradient {f_grad_err}, zeros-padding adjoint "
+                             f"{f_zeros_err} relative to float64 (limit 1e-5); TF32 setting kept: {f_tf32_kept}")
+    emit({
+        "phase": "filter2d", "input": list(f_in.shape), "shapes": [list(o.shape) for o in outs],
+        "cudnn_allow_tf32": True, "calls_timed": GS_CALLS, "forward_ms": f_fwd_ms, "step_ms": f_step_ms,
+        "device_busy_ms_per_step": f_profile["device_busy_ms_per_step"] if f_profile else None,
+        "peak_mem_bytes": f_peak, "launches": f_launches, "forward_rel_err_vs_filter2d_ref_f64": f_fwd_err,
+        "grad_rel_err_vs_float64": f_grad_err, "zeros_grad_rel_err_vs_ref_adjoint_f64": f_zeros_err,
+        "profile": f_profile, "phase_seconds": time.perf_counter() - t_phase,
+    })
+    del outs, refs, f_in
 
     # 15. The avatar4k step (bench.py:bench_avatar4k, BASELINE config 5) at
     # full size: a 4096^2 frame of a 226x226-vertex grid (101,250
@@ -1107,7 +1355,9 @@ def main() -> int:
         return 2 * b3_inv[9][key]
 
     by_path = {"fit_step": main_launches, "inverse8_step": inv_launches, "wireframe": wire_launches,
-               "avatar4k": av_launches}
+               "avatar4k": av_launches, "fisheye62_step": fish["launches"], "lens_list_step": mixed["launches"],
+               "mipmap_views": mv_launches, **{f"grid_scatter_{m}": c for m, c in gs_launches.items()},
+               "filter2d": f_launches}
 
     def paths(key):
         return {path: counts[key] for path, counts in by_path.items()}
@@ -1130,7 +1380,8 @@ def main() -> int:
          "library_device_ms": b2_step("library_device_ms"),
          "inverse8_step": {k: b2_step(k, b2_inv) for k in b2_keys},
          "per_launch": {image: {k_dim: {k: r[k] for k in b2_keys if k != "plain_ms"} for k_dim, r in recs.items()}
-                        for image, recs in (("textured", b2), ("inverse8", b2_inv), ("avatar4k_band0", b2_av))}},
+                        for image, recs in (("textured", b2), ("inverse8", b2_inv), ("avatar4k_band0", b2_av),
+                                            ("mipmap_views_uv_derivative", b2_mv))}},
         {"name": "B3 segment_rows._accumulate_kernel", "route": "cuda",
          "source": "drtk_tpu_torch/csrc/scatter_rows.cu", "replaces": "drtk_tpu/ops/segment_rows.py:129",
          "launches": main_launches["B3 scatter_rows"], "launches_per_step": 3,
@@ -1145,11 +1396,13 @@ def main() -> int:
         {"name": "B4 window_accum._window_kernel", "route": "cuda",
          "source": "drtk_tpu_torch/csrc/window_accum.cu", "replaces": "drtk_tpu/ops/window_accum.py:92",
          "launches": main_launches["B4 window_accum"], "launches_per_step": 1,
-         "max_abs_err": max(b4["max_abs_err"], b4_inv["max_abs_err"], b4_av["max_abs_err"]),
+         "max_abs_err": max(r["max_abs_err"] for r in (b4, b4_inv, b4_av, *b4_gs.values())),
          "ms": b4["ms"], "device_ms": b4["device_ms"], "plain_ms": b4["plain_ms"], "bound_ms": b4["bound_ms"],
          "bound_by": "bytes", "library_ms": b4["library_ms"], "library_device_ms": b4["library_device_ms"],
          "inverse8_step": {k: b4_inv[k] for k in b3_keys},
-         "avatar4k_band0": {k: b4_av[k] for k in b3_keys + ("max_abs_err", "taps", "live_taps", "rows_hw")}},
+         "avatar4k_band0": {k: b4_av[k] for k in b3_keys + ("max_abs_err", "taps", "live_taps", "rows_hw")},
+         "grid_scatter": {mode: {k: r[k] for k in b3_keys + ("max_abs_err", "taps", "live_taps", "rows_hw")}
+                          for mode, r in b4_gs.items()}},
         {"name": "B5 rasterize_pallas._lines_tile_kernel", "route": "cuda",
          "source": "drtk_tpu_torch/csrc/rasterize_lines.cu", "replaces": "drtk_tpu/ops/rasterize_pallas.py:715",
          "launches": wire_launches["B5 rasterize_lines"], "launches_per_step": 1,

@@ -10,11 +10,17 @@ the multi-view inverse-rendering fit. Row-tile viewports of rasterize,
 render and interpolate, mipmapped anisotropic shading
 (:func:`mipmap_grid_sample`), Multi-Sphere Image backgrounds (:func:`msi`)
 and row banding (:func:`map_row_bands`, :func:`edge_grad_estimator_banded`)
-make up :func:`avatar4k_step`, one step of the 4K avatar fit. On CUDA
-tensors the rasterizer's
+make up :func:`avatar4k_step`, one step of the 4K avatar fit. Lens
+distortion (radial-tangential, fisheye, Fisheye62) in :func:`transform`,
+mesh geometry in :mod:`drtk_tpu_torch.utils`, the analytic screen-space uv
+Jacobian (:func:`screen_space_uv_derivative`) that drives mipmap shading in
+:func:`render_mipmap_multiview`, :func:`grid_scatter` (the transpose of
+``grid_sample``) and the alias-free resampling filters of ``filter2d``
+complete the JAX package's single-device API, all but its sparse
+interpolation matrices. On CUDA tensors the rasterizer's
 resolve (B1), its wireframe resolve (B5), the per-pixel face-row gather
 (B2), the pixel-to-face row accumulation (B3) and the texture-gradient
-scatter (B4) run as hand-written kernels for Hopper (sm_90a), built with
+scatter, which is also grid_scatter's splat (B4), run as hand-written kernels for Hopper (sm_90a), built with
 nvcc at first use; on CPU tensors their plain PyTorch versions run.
 Nothing is compiled when the package is imported.
 """
@@ -24,28 +30,55 @@ from drtk_tpu_torch.ops import segment_rows as _segment_rows
 from drtk_tpu_torch.ops import window_accum as _window_accum
 from drtk_tpu_torch.ops.edge_grad import edge_grad_estimator, edge_grad_image
 from drtk_tpu_torch.ops.edge_grad_ref import edge_grad_estimator_ref
+from drtk_tpu_torch import utils
+from drtk_tpu_torch.ops.filter2d import (
+    FilterOptions,
+    FilterType,
+    downsample,
+    filter,
+    low_pass_filter,
+    make_resampling_kernel,
+    resample_filter,
+    upsample,
+)
 from drtk_tpu_torch.ops.grid_sample import grid_sample
+from drtk_tpu_torch.ops.grid_scatter import grid_scatter, grid_scatter_ref
 from drtk_tpu_torch.ops.interpolate import interpolate, interpolate_ref
 from drtk_tpu_torch.ops.mipmap_grid_sample import mipmap_grid_sample, mipmap_grid_sample_ref
 from drtk_tpu_torch.ops.msi import msi
 from drtk_tpu_torch.ops.rasterize import rasterize, rasterize_with_depth
 from drtk_tpu_torch.ops.render import render, render_ref
 from drtk_tpu_torch.parallel.banded import edge_grad_estimator_banded, map_row_bands
-from drtk_tpu_torch.pipeline import avatar4k_step, fit_step, inverse8_step, render_multiview
+from drtk_tpu_torch.pipeline import (
+    avatar4k_step,
+    fit_step,
+    inverse8_step,
+    render_mipmap_multiview,
+    render_multiview,
+)
+from drtk_tpu_torch.screen_space_uv_derivative import screen_space_uv_derivative
 from drtk_tpu_torch.transform import transform, transform_with_v_cam
 
 __all__ = [
+    "FilterOptions",
+    "FilterType",
     "avatar4k_step",
+    "downsample",
     "edge_grad_estimator",
     "edge_grad_estimator_banded",
     "edge_grad_estimator_ref",
     "edge_grad_image",
+    "filter",
     "fit_step",
     "grid_sample",
+    "grid_scatter",
+    "grid_scatter_ref",
     "interpolate",
     "interpolate_ref",
     "inverse8_step",
     "kernel_launch_counts",
+    "low_pass_filter",
+    "make_resampling_kernel",
     "map_row_bands",
     "mipmap_grid_sample",
     "mipmap_grid_sample_ref",
@@ -53,11 +86,16 @@ __all__ = [
     "rasterize",
     "rasterize_with_depth",
     "render",
+    "render_mipmap_multiview",
     "render_multiview",
     "render_ref",
+    "resample_filter",
     "reset_kernel_launch_counts",
+    "screen_space_uv_derivative",
     "transform",
     "transform_with_v_cam",
+    "upsample",
+    "utils",
 ]
 
 __version__ = "0.1.0"

@@ -21,7 +21,7 @@ __all__ = ["adam_state_from_optax", "resolve_device", "scene_from_numpy", "to_nu
 _RANKS = {
     "v": (3,), "vi": (2, 3), "vt": (3,), "tex": (4,), "weight": (4,), "v_world": (3,), "tex_gt": (4,),
     "campos": (2,), "camrot": (3,), "focal": (3,), "princpt": (2,), "K": (3,), "Rt": (3,),
-    "levels": (4,), "msi_tex": (4,), "ray_o": (2,), "ray_d": (2,),
+    "levels": (4,), "msi_tex": (4,), "ray_o": (2,), "ray_d": (2,), "distortion_coeff": (2,), "fov": (2,),
 }
 
 
@@ -52,7 +52,8 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> dict[st
             ``Rt`` [N, 3, 4]; ``levels``, a list of [N, C, H_i, W_i] float
             mip levels, ``msi_tex`` [L, 4, H, W] float (an MSI
             background's texture) and ``ray_o``, ``ray_d`` [R, 3] float
-            (its rays).
+            (its rays); ``distortion_coeff`` [N, K] and ``fov`` [N, 1]
+            float, a lens (see :func:`drtk_tpu_torch.transform.transform`).
             Float arrays keep their dtype; ``vi`` must be int32, as the
             JAX package requires.
         device: target device; "cuda" raises when CUDA is absent.

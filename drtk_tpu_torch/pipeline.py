@@ -10,6 +10,12 @@ with an rgb-plus-silhouette image, and the training step on it (squared
 error to a target image, one backward to the world vertices and the
 texture through the cameras, an Adam update).
 
+The multi-view path's cameras may carry a lens (``distortion_mode``,
+``distortion_coeff``, ``fov``), which ``transform`` applies.
+:func:`render_mipmap_multiview` shades the views with mipmaps as
+``examples/04_rendering_meshes.py`` does: the analytic screen-space uv
+Jacobian drives ``mipmap_grid_sample``.
+
 The 4K avatar fit of ``bench.py:bench_avatar4k``: a 4096^2 frame of the
 grid mesh rendered in row bands (``map_row_bands``, each band a bit-exact
 viewport recomputed in the backward), shaded with ``mipmap_grid_sample``
@@ -35,12 +41,13 @@ from drtk_tpu_torch.ops.msi import msi
 from drtk_tpu_torch.ops.rasterize import rasterize
 from drtk_tpu_torch.ops.render import render
 from drtk_tpu_torch.parallel.banded import edge_grad_estimator_banded, map_row_bands
+from drtk_tpu_torch.screen_space_uv_derivative import screen_space_uv_derivative
 from drtk_tpu_torch.transform import transform
 
 __all__ = [
     "AVATAR4K_STAGES", "BACKWARD_STAGES", "FIT_STAGES", "INVERSE8_STAGES", "MULTIVIEW_STAGES", "STAGES",
     "avatar4k_background", "avatar4k_band", "avatar4k_loss", "avatar4k_step", "fit_step", "inverse8_step",
-    "render_multiview", "render_textured", "stage_ms", "textured_loss",
+    "render_mipmap_multiview", "render_multiview", "render_textured", "stage_ms", "textured_loss",
 ]
 
 STAGES = ("rasterize", "render", "interpolate", "grid_sample", "mask", "edge_grad")
@@ -81,18 +88,27 @@ def _marker(stage_times: list | None):
 
 
 def _check_devices(fn: str, device, tensors) -> torch.device:
+    """``device``, resolved; raises if a tensor among ``tensors`` (other
+    values, such as a distortion mode, are skipped) lies elsewhere."""
     dev = resolve_device(device)
     for name, t in tensors.items():
-        if t is not None and (t.device.type != dev.type or dev.index not in (None, t.device.index)):
+        if torch.is_tensor(t) and (t.device.type != dev.type or dev.index not in (None, t.device.index)):
             raise ValueError(f"{fn}: {name} is on {t.device}, expected {dev}")
     return dev
 
 
-def _shade(fn: str, v, vi, vt, tex, h: int, w: int, impl: str, mark, index_img):
+def _bilinear(tex, uv, impl: str):
+    """The shading of :func:`render_textured` and :func:`render_multiview`:
+    bilinear border ``grid_sample`` of ``tex`` at ``uv``."""
+    return grid_sample(tex, uv, mode="bilinear", padding_mode="border", impl=impl)
+
+
+def _shade(fn: str, v, vi, vt, sample, h: int, w: int, impl: str, mark, index_img):
     """The stages every renderer shares, each marked: rasterize (unless
-    ``index_img`` is given), render, interpolate the uvs, bilinear border
-    ``grid_sample`` of the texture. Returns (rgb [N, C, H, W], mask
-    [N, 1, H, W] of rgb's dtype, bary_img, index_img)."""
+    ``index_img`` is given), render, interpolate the uvs, and shade with
+    ``sample(uv [N, H, W, 2] in [-1, 1], index_img, bary_img)``. Returns
+    (rgb [N, C, H, W], mask [N, 1, H, W] of rgb's dtype, bary_img,
+    index_img)."""
     if index_img is None:
         index_img = rasterize(v, vi, h, w, impl=impl)
     elif tuple(index_img.shape) != (v.shape[0], h, w) or index_img.dtype != torch.int32:
@@ -105,7 +121,7 @@ def _shade(fn: str, v, vi, vt, tex, h: int, w: int, impl: str, mark, index_img):
     mark("interpolate")
     uv = vt_img.movedim(1, -1) * 2.0 - 1.0
     mark("grid_sample_bwd", uv)
-    rgb = grid_sample(tex, uv, mode="bilinear", padding_mode="border", impl=impl)
+    rgb = sample(uv, index_img, bary_img)
     mark("grid_sample")
     return rgb, (index_img != -1)[:, None].to(rgb.dtype), bary_img, index_img
 
@@ -150,7 +166,9 @@ def render_textured(
     mark = _marker(stage_times)
 
     mark("start")
-    rgb, maskf, bary_img, index_img = _shade("render_textured", v, vi, vt, tex, h, w, impl, mark, index_img)
+    rgb, maskf, bary_img, index_img = _shade(
+        "render_textured", v, vi, vt, lambda uv, *_: _bilinear(tex, uv, impl), h, w, impl, mark, index_img
+    )
     img = rgb * maskf
     mark("mask")
     mark("edge_grad_bwd", img)
@@ -243,10 +261,11 @@ def render_multiview(
     Args:
         v_world: [1, V, 3] world-space vertices; vi: [F, 3] int32 faces;
         vt: [1, V, 2] uvs in [0, 1]; tex: [1, C, Ht, Wt] texture.
-        cams: the camera tensors, each with one row per view, as keyword
-            arguments of :func:`~drtk_tpu_torch.transform.transform`
-            (``campos``, ``camrot``, ``focal``, ``princpt``, or ``K``,
-            ``Rt``).
+        cams: the cameras, keyword arguments of
+            :func:`~drtk_tpu_torch.transform.transform`: tensors with one
+            row per view (``campos``, ``camrot``, ``focal``, ``princpt``,
+            or ``K``, ``Rt``) and, for a lens, ``distortion_mode`` (a mode
+            or a per-view list), ``distortion_coeff`` and ``fov``.
         h, w: canvas size of every view.
         device, impl, index_img: as for :func:`render_textured`
             (``index_img`` is [views, H, W]).
@@ -259,24 +278,42 @@ def render_multiview(
         (img [views, C + 1, H, W], index_img [views, H, W] int32): the
         masked rgb and the silhouette.
     """
+    return _render_views(
+        "render_multiview", v_world, vi, vt, {"tex": tex}, cams, h, w, device, impl, stage_times, index_img,
+        lambda uv, *_: _bilinear(tex.expand(uv.shape[0], -1, -1, -1), uv, impl),
+    )
+
+
+def _views(cams: dict) -> int:
+    """The number of views: the rows of the first camera tensor."""
+    return next(t for t in cams.values() if torch.is_tensor(t)).shape[0]
+
+
+def _render_views(fn: str, v_world, vi, vt, textures: dict, cams: dict, h: int, w: int, device, impl: str,
+                  stage_times, index_img, sample):
+    """The multi-view renderers' steps, each marked: the inputs checked
+    (``textures`` names the texture tensors, each of batch 1), the mesh
+    broadcast to the views and ``transform``-ed, :func:`_shade` with
+    ``sample``, ``cat([rgb * mask, mask])``, ``edge_grad_estimator``.
+    Returns (img [views, C + 1, H, W], index_img [views, H, W])."""
     dev = _check_devices(
-        "render_multiview", device,
-        {"v_world": v_world, "vi": vi, "vt": vt, "tex": tex, "index_img": index_img, **cams},
+        fn, device, {"v_world": v_world, "vi": vi, "vt": vt, "index_img": index_img, **textures, **cams}
     )
     if stage_times is not None and dev.type != "cuda":
-        raise ValueError("render_multiview: stage_times needs a CUDA device")
-    if v_world.ndim != 3 or v_world.shape[0] != 1 or vt.shape[0] != 1 or tex.shape[0] != 1:
-        raise ValueError("render_multiview: expected one mesh, uv set and texture (batch 1)")
+        raise ValueError(f"{fn}: stage_times needs a CUDA device")
+    if v_world.ndim != 3 or v_world.shape[0] != 1 or vt.shape[0] != 1 or any(
+        t.shape[0] != 1 for t in textures.values()
+    ):
+        raise ValueError(f"{fn}: expected one mesh, uv set and texture (batch 1)")
     mark = _marker(stage_times)
-    views = next(iter(cams.values())).shape[0]
+    views = _views(cams)
 
     mark("start")
     v_pix = transform(v_world.expand(views, -1, -1), **cams)
     mark("transform")
     mark("render_bwd", v_pix)
     rgb, maskf, bary, index_img = _shade(
-        "render_multiview", v_pix, vi, vt.expand(views, -1, -1), tex.expand(views, -1, -1, -1), h, w, impl, mark,
-        index_img,
+        fn, v_pix, vi, vt.expand(views, -1, -1), sample, h, w, impl, mark, index_img
     )
     img = torch.cat([rgb * maskf, maskf], dim=1)
     mark("mask")
@@ -284,6 +321,66 @@ def render_multiview(
     img = edge_grad_estimator(v_pix=v_pix, vi=vi, bary_img=bary, img=img, index_img=index_img, impl=impl)
     mark("edge_grad")
     return img, index_img
+
+
+def render_mipmap_multiview(
+    v_world: torch.Tensor,
+    vi: torch.Tensor,
+    vt: torch.Tensor,
+    levels,
+    cams: dict,
+    h: int,
+    w: int,
+    device="cuda",
+    impl: str = "auto",
+    index_img: torch.Tensor | None = None,
+):
+    """Render one mesh from every camera with mipmapped anisotropic
+    shading, op for op as ``examples/04_rendering_meshes.py`` (its lines
+    38-62) per view: ``transform``, rasterize, render, interpolate the uvs,
+    :func:`~drtk_tpu_torch.screen_space_uv_derivative.screen_space_uv_derivative`
+    for the analytic uv Jacobian, ``mipmap_grid_sample`` (bilinear, border,
+    ``max_aniso=4``); then, as :func:`render_multiview` ends, ``cat([rgb *
+    mask, mask])`` and ``edge_grad_estimator``.
+
+    Args:
+        v_world: [1, V, 3] world-space vertices; vi: [F, 3] int32 faces (of
+            positions and uvs alike); vt: [1, V, 2] uvs in [0, 1].
+        levels: the mip pyramid, a list of [1, C, H_i, W_i], highest
+            resolution first.
+        cams: pinhole cameras, one row per view: ``campos``, ``camrot``,
+            ``focal``, ``princpt``. The uv Jacobian is the pinhole one: a
+            ``distortion_mode`` raises NotImplementedError there, as in the
+            JAX package, and cameras without ``campos``, ``camrot`` and
+            ``focal`` raise ValueError.
+        h, w: canvas size of every view.
+        device, impl, index_img: as for :func:`render_multiview`.
+
+    Returns:
+        (img [views, C + 1, H, W], index_img [views, H, W] int32).
+        Differentiable in ``v_world`` and the levels (the uv Jacobian, as in
+        the JAX package, steers the mip selection only).
+    """
+    missing = {"campos", "camrot", "focal"} - cams.keys()
+    if missing:
+        raise ValueError(f"render_mipmap_multiview: cams needs campos, camrot and focal, missing {sorted(missing)}")
+
+    def sample(uv, index_img, bary):
+        views = uv.shape[0]
+        # The lens goes on to project_points_grad, which raises for any
+        # distortion mode, as the JAX package's does.
+        jac = screen_space_uv_derivative(
+            v_world.expand(views, -1, -1), vt.expand(views, -1, -1), vi, vi, index_img, bary, index_img != -1,
+            cams["campos"], cams["camrot"], cams["focal"], cams.get("distortion_mode"), cams.get("distortion_coeff"),
+            impl=impl,
+        )
+        lvls = [t.expand(views, -1, -1, -1) for t in levels]
+        return mipmap_grid_sample(lvls, uv, jac, max_aniso=4, padding_mode="border", impl=impl)
+
+    return _render_views(
+        "render_mipmap_multiview", v_world, vi, vt, {f"levels[{i}]": t for i, t in enumerate(levels)}, cams, h, w,
+        device, impl, None, index_img, sample,
+    )
 
 
 def inverse8_step(

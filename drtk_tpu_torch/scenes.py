@@ -17,8 +17,8 @@ import numpy as np
 from drtk_tpu_torch.interop import scene_from_numpy
 
 __all__ = [
-    "avatar4k_scene_arrays", "entry_scene", "entry_scene_arrays", "inverse8_scene_arrays", "make_scene",
-    "make_scene_arrays", "with_edge_flags",
+    "INVERSE8_LENSES", "avatar4k_scene_arrays", "box_pyramid", "entry_scene", "entry_scene_arrays",
+    "inverse8_lens_arrays", "inverse8_scene_arrays", "make_scene", "make_scene_arrays", "with_edge_flags",
 ]
 
 
@@ -95,6 +95,55 @@ def inverse8_scene_arrays(
         "v_world": v_world, "vi": vi, "vt": vt, "tex_gt": tex_gt,
         "campos": campos, "camrot": camrot, "focal": focal, "princpt": princpt,
     }
+
+
+# Lenses for the inverse8 cameras (their view spans a normalized radius of ~0.37
+# at the corners; the mesh reaches ~0.45): each model's coefficients, in its own
+# order, before a seeded per-view jitter. The radial polynomials stay monotonic
+# well past the view: with the jitter of seed 0, the FOV estimators find the
+# first turning point beyond tan(theta) = 1.5 for the fisheye models (or none,
+# and cap theta at pi/2), and beyond r = 1.1 for radial-tangential.
+INVERSE8_LENSES = {
+    # k0..k5, p0, p1
+    "fisheye62": (-0.30, 0.05, -0.01, 0.0, 0.0, 0.0, 1e-3, -1e-3),
+    # k1, k2, p1, p2, k3
+    "radial-tangential": (-0.30, 0.02, 1e-3, -1e-3, 0.0),
+    # k1..k4
+    "fisheye": (-0.30, 0.05, -0.01, 0.0),
+}
+
+
+def inverse8_lens_arrays(mode, views: int = 8, seed: int = 0) -> np.ndarray:
+    """Distortion coefficients for the ``views`` cameras of
+    :func:`inverse8_scene_arrays`, float32 [views, K]: for a model of
+    :data:`INVERSE8_LENSES`, its coefficients with each radial one moved by
+    ``0.01 * randn`` and each tangential one by ``2e-4 * randn`` per view
+    (``RandomState(seed)``); for a per-view list of modes, each row the
+    coefficients of its mode (K = 5, radial-tangential's count; fisheye reads
+    the first 4, a pinhole row none)."""
+    rng = np.random.RandomState(seed)
+    if isinstance(mode, str):
+        base = np.asarray(INVERSE8_LENSES[mode], np.float64)
+        tangential = {"fisheye62": (6, 7), "radial-tangential": (2, 3), "fisheye": ()}[mode]
+        scale = np.full(base.shape, 0.01)
+        scale[list(tangential)] = 2e-4
+        return (base + scale * rng.randn(views, base.size)).astype(np.float32)
+    if len(mode) != views:
+        raise ValueError(f"inverse8_lens_arrays: {len(mode)} modes for {views} views")
+    rows = [inverse8_lens_arrays(m, 1, seed + i)[0] if m in ("radial-tangential", "fisheye") else np.zeros(0)
+            for i, m in enumerate(mode)]
+    return np.stack([np.pad(r, (0, 5 - r.size)) for r in rows]).astype(np.float32)
+
+
+def box_pyramid(tex: np.ndarray, count: int) -> list[np.ndarray]:
+    """``count`` mip levels of ``tex`` [N, C, H, W] (H and W divisible by
+    2**(count-1)), each the 2x2 box average of the one before, as
+    ``examples/04_rendering_meshes.py`` builds its pyramid."""
+    levels = [np.asarray(tex)]
+    for _ in range(count - 1):
+        t = levels[-1]
+        levels.append((t[..., ::2, ::2] + t[..., 1::2, ::2] + t[..., ::2, 1::2] + t[..., 1::2, 1::2]) / 4.0)
+    return levels
 
 
 def avatar4k_scene_arrays(h: int = 4096, gn: int = 226, bh: int = 256) -> dict:

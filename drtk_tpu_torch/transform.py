@@ -32,9 +32,8 @@ def transform(
         campos [N, 3] and camrot [N, 3, 3], or Rt [N, 3, 4] (world to
             camera): exactly one of the two.
         focal [N, 2, 2] and princpt [N, 2], or K [N, 3, 3]: exactly one.
-        distortion_mode, distortion_coeff, fov: see
-            :func:`drtk_tpu_torch.utils.projection.project_points`; only
-            pinhole projection is ported.
+        distortion_mode, distortion_coeff, fov: the lens model, see
+            :func:`drtk_tpu_torch.utils.projection.project_points`.
 
     Returns:
         [N, V, 3]: (x_pix, y_pix, z_cam), the mixed-unit space the
@@ -61,7 +60,8 @@ def transform_with_v_cam(
     lut_spacing: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Same as :func:`transform`, and also returns the camera-space
-    coordinates [N, V, 3]."""
+    coordinates [N, V, 3]; ``lut_vector_field`` and ``lut_spacing`` are
+    Fisheye62's pixel-space correction."""
     if not ((camrot is not None and campos is not None) ^ (Rt is not None)):
         raise ValueError("You must provide exactly one of Rt or (campos, camrot).")
     if not ((focal is not None and princpt is not None) ^ (K is not None)):

@@ -31,6 +31,9 @@ atomics in an order that changes from run to run: rtol 1e-5 and an atol of
 1e-12). The fitting step's gradients through the kernels agree with the
 plain pipeline's to 1e-4 of the largest magnitude, its loss to 1e-5; so
 do the inverse8 step's, to the world vertices and the texture.
+grid_scatter's output agrees with its float64 oracle, and filter2d's
+forward and gradient with float64 (cuDNN's TF32 allowed), to 1e-5 of the
+largest magnitude.
 """
 
 import numpy as np
@@ -1311,3 +1314,66 @@ def test_avatar4k_step_on_the_card_matches_cpu(cuda_device):
     pairs += [(f"levels[{i}]", k, c) for i, (k, c) in enumerate(zip(grads_k["levels"], grads_c["levels"]))]
     for name, got, want in pairs:
         assert (got.cpu() - want).abs().max() <= 1e-4 * want.abs().max(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode, padding_mode", [("bilinear", "border"), ("bicubic", "zeros")])
+def test_b4_matches_plain_under_grid_scatter(cuda_device, mode, padding_mode, monkeypatch):
+    """grid_scatter's forward on a masked render's uv image (a 96 x 128
+    textured scene) into a 3 x 64 x 64 texture: its one B4 launch, captured,
+    against the plain version on the same taps ([T*H, W] tap grid); the op
+    against its float64 oracle to 1e-5 of the largest magnitude."""
+    from drtk_tpu_torch.ops import grid_scatter as gsc
+
+    s = tt.interop.scene_from_numpy(make_scene_arrays(96, 128, 9), cuda_device)
+    v, vi, vt, tex = s["v"], s["vi"], s["vt"], s["tex"]
+    img, idx = render_textured(v, vi, vt, tex, 96, 128)
+    with torch.no_grad():
+        _, bary = tt.render(v, vi, idx)
+        uv = tt.interpolate(vt, vi, idx, bary).movedim(1, -1) * 2.0 - 1.0
+    launch, captured = window_accum._window_accumulate_cuda, []
+
+    def spy(*args):
+        captured.append(args)
+        return launch(*args)
+
+    monkeypatch.setattr(window_accum, "_window_accumulate_cuda", spy)
+    out = tt.grid_scatter(img.detach(), uv, 64, 64, mode, padding_mode)
+    monkeypatch.undo()
+    assert len(captured) == 1
+    taps = 4 if mode == "bilinear" else 16
+    rows_kp, iy, _, t_h, t_w, rows_hw = captured[0]
+    assert rows_kp.shape == (1, 3, taps * 96 * 128) and rows_hw == (taps * 96, 128) and (t_h, t_w) == (64, 64)
+    assert bool((iy.reshape(1, taps, 96, 128)[(idx < 0)[:, None].expand(1, taps, 96, 128)] == -1).all())
+    _b4_close(captured[0])
+    ref = gsc.grid_scatter_ref(img.detach().double(), uv.double(), 64, 64, mode, padding_mode)
+    torch.cuda.synchronize()
+    assert (out.double() - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["downsample", "upsample", "low_pass_filter"])
+def test_filter2d_is_full_float32_with_tf32_allowed(cuda_device, op, monkeypatch):
+    """With cuDNN allowed TF32 (PyTorch's default, set here), filter2d's
+    convolutions still round as float32: forward and the swap-construction
+    gradient within 1e-5 (relative to the largest magnitude) of the
+    float64 reference and of the op run in float64."""
+    from drtk_tpu_torch.ops import filter2d as f2d
+    from drtk_tpu_torch.ops import filter2d_ref as f2d_ref
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    x = torch.rand((1, 3, 256, 192), generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    kaiser = f2d.FilterOptions(6, f2d.FilterType.Kaiser, 0.5)
+    lanczos = f2d.FilterOptions(4, f2d.FilterType.Lanczos)
+    calls = {"downsample": lambda m, a: m.downsample(a, kaiser, 2), "upsample": lambda m, a: m.upsample(a, kaiser, 2),
+             "low_pass_filter": lambda m, a: m.low_pass_filter(a, lanczos, 2.0)}[op]
+    xr = x.clone().requires_grad_()
+    out = calls(f2d, xr)
+    w = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(1), device=cuda_device)
+    (grad,) = torch.autograd.grad((out * w).sum(), xr)
+    ref = calls(f2d_ref, x.double())
+    x64 = x.double().requires_grad_()
+    (grad64,) = torch.autograd.grad((calls(f2d, x64) * w.double()).sum(), x64)
+    assert torch.backends.cudnn.allow_tf32
+    assert (out.double() - ref).abs().max() <= 1e-5 * ref.abs().max()
+    assert (grad.double() - grad64).abs().max() <= 1e-5 * grad64.abs().max()

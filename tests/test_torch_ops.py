@@ -365,11 +365,14 @@ def test_rasterize_validation(case, exc):
         kwargs = {"y_offset": 4}
     elif case == "full_height":
         kwargs = {"y_offset": 4, "full_height": 19}
-    else:  # the transform in front of the rasterizer: only pinhole is ported
+    else:  # the transform in front of the rasterizer takes a lens; its Jacobian-vector product is pinhole only
         cam = dict(campos=torch.zeros(1, 3), camrot=torch.eye(3)[None], focal=torch.eye(2)[None],
                    princpt=torch.zeros(1, 2))
-        with pytest.raises(exc, match="item 15"):
-            tt.transform(v, **cam, distortion_mode="fisheye", distortion_coeff=torch.zeros(1, 4))
+        v_pix = tt.transform(v, **cam, distortion_mode="fisheye", distortion_coeff=torch.zeros(1, 4))
+        assert v_pix.shape == v.shape and bool(torch.isfinite(v_pix).all())
+        with pytest.raises(exc, match="not implemented"):
+            tt.utils.project_points_grad(v, v, cam["campos"], cam["camrot"], cam["focal"], "fisheye",
+                                         torch.zeros(1, 4))
         return
     with pytest.raises(exc):
         tt.rasterize(v, vi, h, 16, **kwargs)

@@ -142,18 +142,20 @@ def test_per_batch_pinhole_modes():
 @pytest.mark.parametrize(
     "mode, exc",
     [
-        ("radial-tangential", NotImplementedError),
-        ("fisheye", NotImplementedError),
-        ("fisheye62", NotImplementedError),
-        (["pinhole", "fisheye", "pinhole"], NotImplementedError),
         ("orthographic", ValueError),
+        (["pinhole", "fisheye62"], ValueError),  # a per-view list may not name Fisheye62, as in the JAX package
     ],
 )
 def test_distortion_modes_raise(mode, exc):
+    """Unknown modes raise; each ported mode is held to the JAX package in
+    tests/test_torch_projection.py."""
     v, cams = _cameras(n=3)
     t = scene_from_numpy({"v": v, **cams}, device="cpu")
-    with pytest.raises(exc, match="item 15" if exc is NotImplementedError else "invalid"):
-        tt.transform(t["v"], **{k: t[k] for k in cams}, distortion_mode=mode, distortion_coeff=torch.zeros(3, 4))
+    with pytest.raises(exc, match="invalid"):
+        tt.transform(t["v"], **{k: t[k] for k in cams}, distortion_mode=mode, distortion_coeff=torch.zeros(3, 8))
+    jcams = {k: jnp.asarray(a) for k, a in cams.items()}
+    with pytest.raises(exc):
+        dt.transform(jnp.asarray(v), **jcams, distortion_mode=mode, distortion_coeff=jnp.zeros((3, 8)))
 
 
 def test_transform_requires_exactly_one_parametrization():
