@@ -1,6 +1,7 @@
 """Drive drtk_tpu_torch's render paths and fitting steps on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sharded-only   # the row-sharded step alone
 
 Builds the five CUDA kernels from the sources in this checkout, holds each
 one against its plain PyTorch version on the card, then drives the paths a
@@ -38,7 +39,17 @@ checked just after:
   launch per forward held against the plain version on the same taps and
   the output against ``grid_scatter_ref`` in float64; and ``filter2d``
   (Kaiser down and up by 2, a Lanczos low-pass) on the textured scene at
-  2048^2, with cuDNN's TF32 allowed, against ``filter2d_ref`` in float64.
+  2048^2, with cuDNN's TF32 allowed, against ``filter2d_ref`` in float64;
+- the sparse interpolation matrices on the textured frame and on the
+  inverse8 step's views: A and A^T A, matvec (B2), rmatvec (B3), the
+  normal values (B3 at K = 9) and their gradient (B2), held against
+  ``interpolate``, its VJP, ``rmatvec(matvec(x))`` and the plain versions;
+- the row-sharded step (``drtk_tpu_torch.parallel.spmd``) on the textured
+  scene: 4 ranks spawned once (NCCL with a card each where there are 4
+  cards, else Gloo with every rank on this card), meshes (1, 4), (2, 2)
+  with 2 cameras and (1, 2) over two of the ranks, an Adam step on v, vt
+  and tex; each rank's launches (B1-B4), its gathered frame against one
+  process's bit for bit and its gradients against ``fit_step``'s.
 
 The face-row gather (B2), the pixel-to-face accumulation (B3) and the
 texture-gradient scatter (B4) are held against their plain versions on the
@@ -64,9 +75,11 @@ is absent or the package is not beside it.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -107,6 +120,12 @@ AV_WARMUP, AV_STEPS, AV_PROFILED = 2, 5, 2
 LENS_LIST, LENS_LIST_STEPS = ("pinhole", "radial-tangential", "fisheye"), 10
 MV_WARMUP, MV_CALLS = 2, 10  # mipmap views: calls before timing, timed calls
 GS_HW, GS_CALLS = 512, 10  # grid_scatter's output texture; timed calls of grid_scatter and filter2d
+# The row-sharded step: 4 ranks, spawned once, run the textured scene on a (1, 4) mesh, a (2, 2) mesh of 2
+# jittered cameras, and a (1, 2) mesh over ranks 0-1; 3 warm-up steps, 10 timed.
+SHARDED_RANKS, SHARDED_MESHES = 4, (("(1, 4)", 4, 1), ("(2, 2)", 4, 2), ("(1, 2) of 4", 2, 1))
+SHARDED_WARMUP, SHARDED_STEPS = 3, 10
+SHARDED_PER_STEP = {"B1 rasterize": 1, "B2 gather_rows": 5, "B3 scatter_rows": 3, "B4 window_accum": 1,
+                    "B5 rasterize_lines": 0}
 
 
 def emit(record: dict) -> None:
@@ -394,6 +413,178 @@ def near_miss_scene(h: int = 64, w: int = 128, seed: int = 0) -> dict:
     return {"v": v, "vi": np.arange(v.shape[1], dtype=np.int32).reshape(-1, 3)}
 
 
+
+def sharded_scene(batch: int) -> dict[str, np.ndarray]:
+    """The textured scene for ``batch`` cameras: batch 2 jitters each copy
+    of the vertices by up to 3 pixels (as tests/test_spmd.py does) and
+    flips the second texture; a seeded weight image for the loss."""
+    from drtk_tpu_torch.scenes import make_scene_arrays
+
+    s = make_scene_arrays(H, W, GN)
+    rng = np.random.RandomState(3)
+    if batch > 1:
+        s["v"] = (s["v"] + rng.uniform(-3, 3, size=(batch, 1, 3))).astype(np.float32)
+        s["vt"] = np.repeat(s["vt"], batch, 0)
+        s["tex"] = np.concatenate([s["tex"], s["tex"][:, :, ::-1]])[:batch].copy()
+    s["weight"] = rng.randn(batch, 3, H, W).astype(np.float32)
+    return s
+
+
+def sharded_rank(rank: int, world: int, store: str, backend: str, outdir: str) -> None:
+    """One rank of the row-sharded step (spawned): for each of
+    SHARDED_MESHES it lies in, the step's kernel launches, its gathered
+    frame against render_textured on one process (bit for bit), its
+    gradients against fit_step's (1e-4 of the largest magnitude), then
+    SHARDED_WARMUP + SHARDED_STEPS Adam steps timed, 3 more profiled, and
+    the step's collectives timed alone; a JSON record per mesh into
+    ``outdir``. Under NCCL each rank takes its own card; under Gloo
+    every rank shares card 0."""
+    import torch.distributed as dist
+
+    import drtk_tpu_torch as tt
+    from drtk_tpu_torch.ops.math import next_rank_rows
+    from drtk_tpu_torch.parallel import multihost, sharding, spmd
+    from drtk_tpu_torch.pipeline import fit_step, render_textured
+
+    card = rank if backend == "nccl" else 0
+    torch.cuda.set_device(card)
+    dev = torch.device("cuda", card)
+    multihost.initialize(f"file://{store}", world, rank, backend=backend)
+    try:
+        for label, n_dev, batch in SHARDED_MESHES:
+            mesh = sharding.make_mesh(n_dev, batch=batch, device_type="cuda")
+            if mesh.get_coordinate() is None:
+                continue
+            d, j = mesh.get_coordinate()
+            data, pix = mesh.shape
+            nb, hb = batch // data, H // pix
+            s = {k: torch.from_numpy(a).to(dev) for k, a in sharded_scene(batch).items()}
+            cams = slice(d * nb, (d + 1) * nb)
+            w_block = s["weight"][cams, :, j * hb:(j + 1) * hb]
+            leaves = [s[k][cams].clone().requires_grad_() for k in ("v", "vt", "tex")]
+            fwd = spmd.make_row_sharded_forward(mesh, s["vi"], H, W)
+            torch.cuda.synchronize()
+            tt.reset_kernel_launch_counts()
+            block = fwd(*leaves)
+            grads = torch.autograd.grad((block * w_block).sum(), leaves)
+            torch.cuda.synchronize()
+            check_launches = tt.kernel_launch_counts()
+            if check_launches != SHARDED_PER_STEP:
+                raise AssertionError(f"rank {rank} {label}: launches {check_launches}, expected {SHARDED_PER_STEP}")
+            frame = spmd.gather_frame(block, mesh)
+            with torch.no_grad():
+                img_ref, _ = render_textured(s["v"], s["vi"], s["vt"], s["tex"], H, W)
+            if not torch.equal(frame, img_ref):
+                raise AssertionError(f"rank {rank} {label}: the gathered frame differs from one process's")
+            _, grads_ref = fit_step(s["v"][cams], s["vi"], s["vt"][cams], s["tex"][cams], H, W,
+                                    weight=s["weight"][cams])
+            grad_err = {k: rel_err(g, grads_ref[k]) for k, g in zip(("v", "vt", "tex"), grads)}
+            if not all(e <= 1e-4 for e in grad_err.values()):
+                raise AssertionError(f"rank {rank} {label}: gradients differ from one process's by {grad_err}")
+            del frame, img_ref, grads_ref, grads, block
+
+            opt = torch.optim.Adam(leaves, lr=1e-3)
+
+            def step():
+                opt.zero_grad(set_to_none=True)
+                (fwd(*leaves) * w_block).sum().backward()
+                opt.step()
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            tt.reset_kernel_launch_counts()
+            step_ms = []
+            for _ in range(SHARDED_WARMUP + SHARDED_STEPS):
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            launches = tt.kernel_launch_counts()
+            n_steps = SHARDED_WARMUP + SHARDED_STEPS
+            if launches != {k: c * n_steps for k, c in SHARDED_PER_STEP.items()}:
+                raise AssertionError(f"rank {rank} {label}: launches {launches} over {n_steps} steps")
+            peak = torch.cuda.max_memory_allocated(dev)
+            profile = device_profile(step, 3)
+            # The step's collectives alone, as the step calls them: the three
+            # gradients' all-reduces and one halo exchange.
+            group = mesh.get_group("pix")
+            grads_like = [x.detach().clone() for x in leaves]
+            firsts = [torch.zeros((nb, 3, 1, W), device=dev) for _ in range(3)] + [
+                torch.zeros((nb, 1, W), dtype=torch.int32, device=dev)]
+
+            def comm_ms(fn, reps=10):
+                fn()
+                torch.cuda.synchronize()
+                dist.barrier(group=group)
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3 / reps
+
+            all_reduce_ms = comm_ms(lambda: [dist.all_reduce(g, group=group) for g in grads_like])
+            halo_ms = comm_ms(lambda: next_rank_rows(firsts, (0, 0, 0, -1), group))
+            row_bytes = nb * W * 4 * (3 + 3 + 3 + 1)  # img, cotangent, bary rows; the index row
+            rec = {
+                "mesh": label, "rank": rank, "coord": [d, j], "batch": batch, "cameras": nb, "rows": hb,
+                "device": str(dev), "launches_check": check_launches, "launches": launches,
+                "grad_rel_err_vs_one_process": grad_err, "frame_bit_equal": True,
+                "halo_bytes_sent_per_step": row_bytes if j > 0 else 0,
+                "halo_bytes_received_per_step": row_bytes if j < pix - 1 else 0,
+                "step_ms_median": statistics.median(step_ms[SHARDED_WARMUP:]),
+                "step_ms_min": min(step_ms[SHARDED_WARMUP:]), "step_ms_max": max(step_ms[SHARDED_WARMUP:]),
+                "all_reduce_ms_per_step": all_reduce_ms, "halo_ms_per_step": halo_ms,
+                "gradient_bytes_all_reduced": sum(g.numel() * g.element_size() for g in grads_like),
+                "peak_mem_bytes": peak,
+                "device_busy_ms_per_step": profile["device_busy_ms_per_step"] if profile else None,
+                "device_ops_per_step": profile["device_ops_per_step"] if profile else None,
+                "device_busy_share": profile["device_busy_share"] if profile else None,
+            }
+            with open(os.path.join(outdir, f"{label}-{rank}.json"), "w") as f:
+                json.dump(rec, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+
+def row_sharded_phase() -> dict:
+    """The row-sharded step (drtk_tpu_torch.parallel.spmd) on the textured
+    scene at 1024^2: SHARDED_RANKS ranks spawned once (``sharded_rank``) run
+    SHARDED_MESHES, an Adam step on v, vt and tex. NCCL with a card per rank
+    where there are that many cards; else Gloo, every rank on this card
+    (their step times share its time: not a scaling figure). Emits a record
+    per mesh; returns rank 0's kernel launches on the first mesh."""
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    backend = "nccl" if torch.cuda.device_count() >= SHARDED_RANKS else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(sharded_rank, args=(SHARDED_RANKS, os.path.join(tmp, "store"), backend, tmp),
+                 nprocs=SHARDED_RANKS)
+        sharded = {}
+        for label, n_dev, _ in SHARDED_MESHES:
+            recs = []
+            for rank in range(n_dev):
+                with open(os.path.join(tmp, f"{label}-{rank}.json")) as f:
+                    recs.append(json.load(f))
+            sharded[label] = recs
+    for label, recs in sharded.items():
+        emit({
+            "phase": "row-sharded step", "config": "textured", "mesh": label, "H": H, "W": W, "backend": backend,
+            "ranks": len(recs), "ranks_per_card": len(recs) if backend == "gloo" else 1,
+            "warmup_steps": SHARDED_WARMUP, "steps_timed": SHARDED_STEPS, "per_rank": recs,
+            "step_ms_median_max_over_ranks": max(r["step_ms_median"] for r in recs),
+            "grad_rel_err_max": max(max(r["grad_rel_err_vs_one_process"].values()) for r in recs),
+            "halo_bytes_per_step": sum(r["halo_bytes_sent_per_step"] for r in recs),
+            **{f"{k}_max_over_ranks": max((r[k] for r in recs if r[k] is not None), default=None)
+               for k in ("all_reduce_ms_per_step", "halo_ms_per_step", "device_busy_ms_per_step", "peak_mem_bytes")},
+        })
+    emit({"phase": "row-sharded checks", "backend": backend, "frames_bit_equal": True,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return sharded[SHARDED_MESHES[0][0]][0]["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU", file=sys.stderr)
@@ -441,6 +632,11 @@ def main() -> int:
     _build.build_all()
     ptxas = {k: [ln.strip() for ln in log.splitlines() if "Used" in ln] for k, log in _build.build_logs.items()}
     emit({"phase": "build", "dir": str(_build.BUILD_DIR), "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    if sys.argv[1:] == ["--sharded-only"]:
+        # The row-sharded step alone, for a machine with a card per rank
+        # (NCCL): the one phase that spans cards.
+        row_sharded_phase()
+        return finish(smi)
 
     v, vi, vt, tex = make_scene(H, W, GN, device=dev)
     n_faces = vi.shape[0]
@@ -1339,6 +1535,113 @@ def main() -> int:
     })
     del remat, idx_full
 
+    # 18. The sparse interpolation matrices on the textured frame and on the
+    # inverse8 step's 8 views (one vi): A and A^T A built from the render's
+    # barycentrics; per call, matvec (B2), rmatvec (B3), the normal values
+    # (B3 at K = 9) and their gradient to bary (B2). matvec is held to
+    # interpolate on the same x, rmatvec to interpolate's VJP, the normal
+    # matrix to rmatvec(matvec(x)), and each to its plain version on the card.
+    from drtk_tpu_torch.ops import interpolate as interp_mod
+
+    im_per_call = {"B1 rasterize": 0, "B2 gather_rows": 2, "B3 scatter_rows": 2, "B4 window_accum": 0,
+                   "B5 rasterize_lines": 0}
+    im_launches = {k: 0 for k in im_per_call}
+    im_scenes = {"textured": (v, vi, index_img),
+                 "inverse8": (inv_v_pix.detach(), inv["vi"], idx_k)}
+    for scene, (sv, svi, sidx) in im_scenes.items():
+        t_phase = time.perf_counter()
+        n, nv = sv.shape[0], sv.shape[1]
+        with torch.no_grad():
+            _, sbary = tt.render(sv, svi, sidx)
+        x = torch.randn((n, nv, 3), generator=gen, device=dev)
+        y = torch.randn((n, sidx.shape[1] * sidx.shape[2], 3), generator=gen, device=dev)
+        wv_gen = torch.Generator(device=dev).manual_seed(1)
+        interp_mod._STRUCTURE_CACHE.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        structure = tt.interpolation_normal_structure(svi, nv)
+        structure_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        hit = tt.interpolation_normal_structure(svi, nv)
+        hit_ms = (time.perf_counter() - t0) * 1e3
+        if hit is not structure:
+            raise AssertionError(f"interpolation matrices {scene}: the structure cache missed")
+        wv = torch.randn((n, int(structure.rows.shape[0])), generator=wv_gen, device=dev)
+
+        def products(impl="auto", sbary=sbary):
+            b = sbary.clone().requires_grad_()
+            a = tt.interpolation_matrix(svi, sidx, b, nv, impl=impl)
+            nm = tt.interpolation_normal_matrix(svi, sidx, b, nv, impl=impl)
+            (g_bary,) = torch.autograd.grad((nm.vals * wv).sum(), b)
+            return a, nm, a.matvec(x), a.rmatvec(y), g_bary
+
+        torch.cuda.synchronize()
+        tt.reset_kernel_launch_counts()
+        t0 = time.perf_counter()
+        a, nm, ax, aty, g_bary = products()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launches = tt.kernel_launch_counts()
+        if launches != im_per_call:
+            raise AssertionError(f"interpolation matrices {scene}: launches {launches}, expected {im_per_call}")
+        im_launches = {k: im_launches[k] + c for k, c in launches.items()}
+        fg = (sidx >= 0)[:, None]
+        with torch.no_grad():
+            img = tt.interpolate(x, svi, sidx, sbary)
+        want_ax = torch.where(fg, img, 0.0).movedim(1, -1).reshape(ax.shape)
+        xl = x.clone().requires_grad_()
+        (want_aty,) = torch.autograd.grad(tt.interpolate(xl, svi, sidx, sbary), xl,
+                                          y.reshape(n, sidx.shape[1], sidx.shape[2], 3).movedim(-1, 1))
+        plain = products("plain")
+        errs = {
+            "matvec_vs_interpolate": rel_err(ax, want_ax), "rmatvec_vs_interpolate_vjp": rel_err(aty, want_aty),
+            "normal_matvec_vs_rmatvec_matvec": rel_err(nm.matvec(x), a.rmatvec(a.matvec(x))),
+            "matvec_vs_plain": rel_err(ax, plain[2]), "rmatvec_vs_plain": rel_err(aty, plain[3]),
+            "normal_values_vs_plain": rel_err(nm.vals, plain[1].vals),
+            "normal_values_grad_vs_plain": rel_err(g_bary, plain[4]),
+        }
+        limits = {k: 1e-6 if k.startswith("matvec") else 1e-5 for k in errs}
+        if not all(errs[k] <= limits[k] for k in errs) or not torch.equal(a.cols, plain[0].cols):
+            raise AssertionError(f"interpolation matrices {scene}: errors {errs} over their limits {limits}")
+        b_leaf = sbary.clone().requires_grad_()
+
+        def values_and_grad():
+            vals = tt.interpolation_normal_matrix_values(structure, svi, sidx, b_leaf)
+            return torch.autograd.grad((vals * wv).sum(), b_leaf)
+
+        def plain_values():
+            return tt.interpolation_normal_matrix_values(structure, svi, sidx, sbary, impl="plain")
+
+        times = {
+            "matvec_ms": cuda_ms(lambda: a.matvec(x), 20), "matvec_plain_ms": cuda_ms(lambda: plain[0].matvec(x), 5),
+            "rmatvec_ms": cuda_ms(lambda: a.rmatvec(y), 20),
+            "rmatvec_plain_ms": cuda_ms(lambda: plain[0].rmatvec(y), 5),
+            "normal_values_ms": cuda_ms(lambda: tt.interpolation_normal_matrix_values(structure, svi, sidx, sbary),
+                                        20),
+            "normal_values_plain_ms": cuda_ms(plain_values, 5),
+            "normal_values_and_grad_ms": cuda_ms(values_and_grad, 20),
+            "build_matrix_ms": cuda_ms(lambda: tt.interpolation_matrix(svi, sidx, sbary, nv), 20),
+        }
+        profile = device_profile(lambda: (a.matvec(x), a.rmatvec(y), values_and_grad()), PROFILED_STEPS)
+        emit({
+            "phase": "interpolation matrices", "scene": scene, "batch": n, "H": int(sidx.shape[1]),
+            "W": int(sidx.shape[2]), "faces": int(svi.shape[-2]), "vertices": nv,
+            "foreground_pixels": int(fg.sum()), "nnz": int(structure.rows.shape[0]),
+            "structure_host_ms": structure_ms, "structure_cache_hit_ms": hit_ms, "first_products_ms": first_ms,
+            **times, "device_busy_ms_per_call": profile["device_busy_ms_per_step"] if profile else None,
+            "launches": launches, "rel_errs": errs, "limits": limits, "profile": profile,
+            "phase_seconds": time.perf_counter() - t_phase,
+        })
+        if scene == "textured":
+            bary_rows = sbary.movedim(1, -1)
+            b3["normal_values"] = b3_record(
+                "textured normal values", (bary_rows[..., :, None] * bary_rows[..., None, :]).reshape(
+                    n, sidx.shape[1], sidx.shape[2], 9), sidx, int(svi.shape[-2]))
+        del a, nm, ax, aty, g_bary, plain, want_ax, want_aty, img
+
+    # 19. The row-sharded step.
+    sharded_launches = row_sharded_phase()
+
     # 14. The kernels, with the numbers of this run; times per fitting step
     # (B2: K=9 and K=6 in the forward, again in the backward, and K=16 in
     # edge_grad's backward; B3: K=9 in render's and edge_grad's backward,
@@ -1357,7 +1660,8 @@ def main() -> int:
     by_path = {"fit_step": main_launches, "inverse8_step": inv_launches, "wireframe": wire_launches,
                "avatar4k": av_launches, "fisheye62_step": fish["launches"], "lens_list_step": mixed["launches"],
                "mipmap_views": mv_launches, **{f"grid_scatter_{m}": c for m, c in gs_launches.items()},
-               "filter2d": f_launches}
+               "filter2d": f_launches, "interpolation_matrices": im_launches,
+               "row_sharded_step_rank0": sharded_launches}
 
     def paths(key):
         return {path: counts[key] for path, counts in by_path.items()}
@@ -1415,6 +1719,11 @@ def main() -> int:
                                   "B5 rasterize_lines")):
         row["launches_by_path"] = paths(key)
     emit({"kernels": kernels})
+    return finish(smi)
+
+
+def finish(smi: str) -> int:
+    """The last two lines: the card's name and power limit, and the result."""
     if "jax" in sys.modules or "drtk_tpu" in sys.modules:
         raise AssertionError("the port imported JAX or the JAX package")
     print(smi, flush=True)

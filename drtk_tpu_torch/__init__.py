@@ -16,8 +16,13 @@ mesh geometry in :mod:`drtk_tpu_torch.utils`, the analytic screen-space uv
 Jacobian (:func:`screen_space_uv_derivative`) that drives mipmap shading in
 :func:`render_mipmap_multiview`, :func:`grid_scatter` (the transpose of
 ``grid_sample``) and the alias-free resampling filters of ``filter2d``
-complete the JAX package's single-device API, all but its sparse
-interpolation matrices. On CUDA tensors the rasterizer's
+complete the JAX package's single-device API, with the sparse
+interpolation matrices (:func:`interpolation_matrix`,
+:func:`interpolation_normal_matrix` over a cached pair structure). The
+multi-device layer is :mod:`drtk_tpu_torch.parallel` (``sharding``,
+``spmd``, ``multihost``): a frame's rows and cameras over the ranks of a
+``torch.distributed`` mesh, edge_grad's halo row passed between them.
+On CUDA tensors the rasterizer's
 resolve (B1), its wireframe resolve (B5), the per-pixel face-row gather
 (B2), the pixel-to-face row accumulation (B3) and the texture-gradient
 scatter, which is also grid_scatter's splat (B4), run as hand-written kernels for Hopper (sm_90a), built with
@@ -43,7 +48,17 @@ from drtk_tpu_torch.ops.filter2d import (
 )
 from drtk_tpu_torch.ops.grid_sample import grid_sample
 from drtk_tpu_torch.ops.grid_scatter import grid_scatter, grid_scatter_ref
-from drtk_tpu_torch.ops.interpolate import interpolate, interpolate_ref
+from drtk_tpu_torch.ops.interpolate import (
+    InterpolationMatrix,
+    NormalMatrix,
+    NormalStructure,
+    interpolate,
+    interpolate_ref,
+    interpolation_matrix,
+    interpolation_normal_matrix,
+    interpolation_normal_matrix_values,
+    interpolation_normal_structure,
+)
 from drtk_tpu_torch.ops.mipmap_grid_sample import mipmap_grid_sample, mipmap_grid_sample_ref
 from drtk_tpu_torch.ops.msi import msi
 from drtk_tpu_torch.ops.rasterize import rasterize, rasterize_with_depth
@@ -62,6 +77,9 @@ from drtk_tpu_torch.transform import transform, transform_with_v_cam
 __all__ = [
     "FilterOptions",
     "FilterType",
+    "InterpolationMatrix",
+    "NormalMatrix",
+    "NormalStructure",
     "avatar4k_step",
     "downsample",
     "edge_grad_estimator",
@@ -75,6 +93,10 @@ __all__ = [
     "grid_scatter_ref",
     "interpolate",
     "interpolate_ref",
+    "interpolation_matrix",
+    "interpolation_normal_matrix",
+    "interpolation_normal_matrix_values",
+    "interpolation_normal_structure",
     "inverse8_step",
     "kernel_launch_counts",
     "low_pass_filter",

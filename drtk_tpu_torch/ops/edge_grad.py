@@ -19,16 +19,22 @@ as it is plain XLA in the JAX package. The backward takes a row tile
 (``y_offset``, ``full_height``), as the JAX backward does: the pixel grid
 is the global rows, and stencil centres on the frame's last row are
 dropped. :func:`~drtk_tpu_torch.parallel.banded.edge_grad_estimator_banded`
-runs it band by band.
+runs it band by band. With a process ``group``, the inputs are one rank's
+row block of a frame sharded by rows (``drtk_tpu/ops/edge_grad.py:
+330-410``): the backward fetches the next rank's first row of ``img``, the
+cotangent, ``index_img`` and ``bary_img`` (:func:`~drtk_tpu_torch.ops.math.
+next_rank_rows`; the last rank takes a background row) and reduces the
+block and that halo row to the rank's part of the vertex gradient.
 """
 
 from __future__ import annotations
 
+import operator
 from typing import Callable, Optional
 
 import torch
 
-from drtk_tpu_torch.ops.math import autocast_f32, epsclamp
+from drtk_tpu_torch.ops.math import autocast_f32, epsclamp, next_rank_rows
 from drtk_tpu_torch.ops.rasterize import broadcast_vi
 from drtk_tpu_torch.ops.render import _face_table, _pixel_grid, _pixels_to_verts
 from drtk_tpu_torch.ops.segment_rows import gather_rows_by_index
@@ -214,6 +220,22 @@ def _edge_grad_backward(
     return out
 
 
+def _edge_grad_block_rows(v_pix, vi, block, y0: int, height: int, max_dp_dr: float, impl="auto"):
+    """The per-pixel ``bary x g`` rows [N, hb+1, W, 9] of a block that
+    owns the stencil centres of rows ``[y0, y0 + hb)`` of a ``height``-row
+    frame, with its index [N, hb+1, W]. ``block`` = (img, g, bary, index)
+    holds those rows and one halo row below them (the stencil's D leg):
+    the next rows of the frame, or a background row (zeros, index -1)."""
+    img_b, g_b, bary_b, idx_b = block
+    gv_img = _edge_grad_backward(
+        v_pix, vi, img_b, idx_b, g_b, max_dp_dr, impl, y_offset=y0, full_height=height
+    )  # [N, 3, hb+1, W]
+    g = gv_img.movedim(1, -1)  # [N, hb+1, W, 3(coord)]
+    bary = bary_b.movedim(1, -1).to(g.dtype)  # [N, hb+1, W, 3(corner)]
+    n, rows, w, _ = g.shape
+    return (bary[..., :, None] * g[..., None, :]).reshape(n, rows, w, 9), idx_b
+
+
 class _EdgeGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, v_pix, vi, bary_img, img, index_img, max_dp_dr, impl):
@@ -239,6 +261,36 @@ class _EdgeGrad(torch.autograd.Function):
         return grad_v_pix, None, None, grad_img, None, None, None
 
 
+class _EdgeGradSharded(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v_pix, vi, bary_img, img, index_img, max_dp_dr, impl, group, y_offset, full_height):
+        ctx.save_for_backward(v_pix, vi, bary_img, img, index_img)
+        ctx.max_dp_dr, ctx.impl, ctx.group = max_dp_dr, impl, group
+        ctx.y_offset, ctx.full_height = y_offset, full_height
+        return img.view_as(img)
+
+    @staticmethod
+    def backward(ctx, grad_output):
+        """``drtk_tpu/ops/edge_grad.py:343-410``: the block and the next
+        rank's first row, reduced to this rank's part of the vertex
+        gradient; the sum over the group is the replicated input's (see
+        :func:`~drtk_tpu_torch.ops.math.psum_cotangent`)."""
+        v_pix, vi, bary_img, img, index_img = ctx.saved_tensors
+        grad_v_pix = None
+        if ctx.needs_input_grad[0]:
+            grad_output = grad_output.contiguous()
+            block = (img, grad_output, bary_img, index_img)
+            firsts = [img[:, :, :1], grad_output[:, :, :1], bary_img[:, :, :1], index_img[:, :1]]
+            halo = next_rank_rows(firsts, (0, 0, 0, -1), ctx.group)
+            ext = [torch.cat([b, h], dim=2 if b.ndim == 4 else 1) for b, h in zip(block, halo)]
+            rows, idx_ext = _edge_grad_block_rows(
+                v_pix, vi, ext, ctx.y_offset, ctx.full_height, ctx.max_dp_dr, ctx.impl
+            )
+            grad_v_pix = _pixels_to_verts(rows, idx_ext, vi, v_pix.shape[1], ctx.impl)
+        grad_img = grad_output if ctx.needs_input_grad[3] else None
+        return grad_v_pix, None, None, grad_img, None, None, None, None, None, None
+
+
 def edge_grad_estimator(
     v_pix: torch.Tensor,
     vi: torch.Tensor,
@@ -248,6 +300,9 @@ def edge_grad_estimator(
     v_pix_img_hook: Optional[Callable[[torch.Tensor], None]] = None,
     max_dp_dr: float = 1e4,
     impl: str = "auto",
+    group=None,
+    y_offset: int = 0,
+    full_height: int | None = None,
 ) -> torch.Tensor:
     """Make the rasterized image differentiable at visibility discontinuities.
 
@@ -266,6 +321,18 @@ def edge_grad_estimator(
         max_dp_dr: magnitude clamp for dp/dr (0.0 disables it).
         impl: "auto" runs kernels B2 and B3 on CUDA tensors; "plain" runs
             their plain versions on any device.
+        group: a ``torch.distributed`` process group whose ranks hold
+            consecutive row blocks of one frame, in rank order (the "pix"
+            group of :func:`~drtk_tpu_torch.parallel.sharding.make_mesh`);
+            the inputs are this rank's block. The backward exchanges one
+            halo row with the next rank and returns this rank's part of
+            the vertex gradient: enter ``v_pix`` through
+            :func:`~drtk_tpu_torch.ops.math.psum_cotangent` over ``group``
+            (as :func:`~drtk_tpu_torch.parallel.spmd.
+            make_row_sharded_forward` does) to sum the parts. Requires
+            ``full_height``.
+        y_offset: the global row of the block's first row (with ``group``).
+        full_height: the frame's height (with ``group``).
 
     Returns:
         ``img`` (float32 if it was f16/bf16).
@@ -276,7 +343,19 @@ def edge_grad_estimator(
     bary_img = autocast_f32(bary_img)
     img = autocast_f32(img)
     vi = broadcast_vi(vi, v_pix.shape[0])
-    return _EdgeGrad.apply(v_pix, vi, bary_img.detach(), img, index_img, float(max_dp_dr), impl)
+    if group is None:
+        return _EdgeGrad.apply(v_pix, vi, bary_img.detach(), img, index_img, float(max_dp_dr), impl)
+    if full_height is None:
+        raise ValueError("edge_grad_estimator: full_height is required with group")
+    y_offset, full_height = operator.index(y_offset), operator.index(full_height)
+    if y_offset < 0 or y_offset + index_img.shape[1] > full_height:
+        raise ValueError(
+            f"edge_grad_estimator: rows [{y_offset}, {y_offset + index_img.shape[1]}) do not lie in a frame of "
+            f"{full_height} rows"
+        )
+    return _EdgeGradSharded.apply(
+        v_pix, vi, bary_img.detach(), img, index_img, float(max_dp_dr), impl, group, y_offset, full_height
+    )
 
 
 def edge_grad_image(

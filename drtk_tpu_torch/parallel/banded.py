@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
-from drtk_tpu_torch.ops.edge_grad import _edge_grad_backward
+from drtk_tpu_torch.ops.edge_grad import _edge_grad_block_rows
 from drtk_tpu_torch.ops.math import autocast_f32
 from drtk_tpu_torch.ops.rasterize import broadcast_vi
 from drtk_tpu_torch.ops.render import _pixels_to_verts
@@ -79,16 +79,10 @@ def _edge_grad_band_rows(v_pix, vi, padded, y0: int, hb: int, height: int, max_d
     stencil centres in rows ``[y0, y0 + hb)``, and its index block
     [N, hb+1, W]: the band and one halo row sliced from ``padded`` = (img,
     g, bary, index) with one background row appended."""
-    img_p, g_p, bary_p, idx_p = padded
     rows = slice(y0, y0 + hb + 1)
-    idx_b = idx_p[:, rows]
-    gv_img = _edge_grad_backward(
-        v_pix, vi, img_p[:, :, rows], idx_b, g_p[:, :, rows], max_dp_dr, impl, y_offset=y0, full_height=height
-    )  # [N, 3, hb+1, W]
-    g = gv_img.movedim(1, -1)  # [N, hb+1, W, 3(coord)]
-    bary = bary_p[:, :, rows].movedim(1, -1).to(g.dtype)  # [N, hb+1, W, 3(corner)]
-    n, _, w, _ = g.shape
-    return (bary[..., :, None] * g[..., None, :]).reshape(n, hb + 1, w, 9), idx_b
+    img_p, g_p, bary_p, idx_p = padded
+    block = (img_p[:, :, rows], g_p[:, :, rows], bary_p[:, :, rows], idx_p[:, rows])
+    return _edge_grad_block_rows(v_pix, vi, block, y0, height, max_dp_dr, impl)
 
 
 def _pad_frame(img, g, bary_img, index_img):

@@ -1377,3 +1377,76 @@ def test_filter2d_is_full_float32_with_tf32_allowed(cuda_device, op, monkeypatch
     assert torch.backends.cudnn.allow_tf32
     assert (out.double() - ref).abs().max() <= 1e-5 * ref.abs().max()
     assert (grad.double() - grad64).abs().max() <= 1e-5 * grad64.abs().max()
+
+
+def _normal_values_case(device):
+    """The grid scene rasterized at 96x128 on ``device``: its faces'
+    structure and the render's barycentrics."""
+    s = make_scene_arrays(96, 128, 9)
+    v, vi = torch.from_numpy(s["v"]).to(device), torch.from_numpy(s["vi"]).to(device)
+    idx = tt.rasterize(v, vi, 96, 128)
+    _, bary = tt.render(v, vi, idx)
+    return vi, idx, bary, tt.interpolation_normal_structure(vi, v.shape[1])
+
+
+@pytest.mark.cuda
+def test_normal_values_b3_matches_plain(cuda_device):
+    """The normal matrix's values: the nine products per pixel through B3
+    at K = 9 (one launch), against the plain ``index_add_`` path, rtol 1e-5
+    plus 1e-6 of the summed magnitudes (all products are >= 0 inside a
+    triangle, so the magnitudes are the values)."""
+    vi, idx, bary, s = _normal_values_case(cuda_device)
+    before = segment_rows.scatter_launches
+    got = tt.interpolation_normal_matrix_values(s, vi, idx, bary)
+    torch.cuda.synchronize()
+    assert segment_rows.scatter_launches == before + 1
+    want = tt.interpolation_normal_matrix_values(s, vi, idx, bary, impl="plain")
+    magnitude = tt.interpolation_normal_matrix_values(s, vi, idx, bary.abs(), impl="plain")
+    _magnitude_bound(got, want, magnitude, torch.float32)
+
+
+@pytest.mark.cuda
+def test_normal_values_backward_b2_matches_plain(cuda_device):
+    """The values' gradient to ``bary_img`` gathers the slots' cotangents
+    per pixel with B2 (bit-exact): equal to the plain gather's."""
+    vi, idx, bary, s = _normal_values_case(cuda_device)
+    w = torch.randn((1, int(s.rows.shape[0])), generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    grads = []
+    for impl in ("auto", "plain"):
+        b = bary.clone().requires_grad_()
+        before = segment_rows.launches
+        (g,) = torch.autograd.grad((tt.interpolation_normal_matrix_values(s, vi, idx, b, impl=impl) * w).sum(), b)
+        torch.cuda.synchronize()
+        assert segment_rows.launches == before + (impl == "auto")
+        grads.append(g)
+    assert torch.equal(grads[0], grads[1])
+
+
+def _halo_rank(rank, store):
+    """One of two Gloo ranks sharing the card: each sends its CUDA rows to
+    the previous rank through ``next_rank_rows``."""
+    import torch.distributed as dist
+
+    from drtk_tpu_torch.ops.math import next_rank_rows
+
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=2, rank=rank)
+    try:
+        dev = torch.device("cuda", 0)
+        rows = [torch.full((2, 3, 1, 5), rank + 0.5, device=dev), torch.full((2, 1, 5), rank + 7, dtype=torch.int32,
+                                                                            device=dev)]
+        got = next_rank_rows(rows, (0, -1), dist.group.WORLD)
+        want = (1.5, 8) if rank == 0 else (0.0, -1)
+        for g, r, w in zip(got, rows, want):
+            if g.device != dev or g.dtype != r.dtype or g.shape != r.shape or not bool((g == w).all()):
+                raise AssertionError(f"rank {rank}: got {g} on {g.device}, expected {w}")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_halo_rows_round_trip_through_the_host_under_gloo(cuda_device, tmp_path):
+    """Two Gloo ranks on the card: the first receives the second's rows
+    (through host memory), the last gets the fill; both on the card."""
+    import torch.multiprocessing as mp
+
+    mp.spawn(_halo_rank, args=(str(tmp_path / "store"),), nprocs=2)
