@@ -3,7 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --sharded-only   # the row-sharded step alone
 
-Builds the five CUDA kernels from the sources in this checkout, holds each
+Builds the six CUDA kernels from the sources in this checkout, holds each
 one against its plain PyTorch version on the card, then drives the paths a
 user calls, each with the kernel launch counts reset just before it and
 checked just after:
@@ -61,7 +61,12 @@ the views of the inverse8 step; wireframe rasterization (B5), bit for bit,
 on the entry, textured and inverse8 scenes and on a scene of edges within
 ulps of the diamonds' reach (``near_miss_scene``), with the edge tests its
 rejects leave (modeled from the packed rows); and row-tile viewports of B1
-and B5 against the full frame. Times come from CUDA events: a kernel's ``ms`` (and
+and B5 against the full frame; and edge_grad's backward stencil (E1), in
+rows and image mode at max_dp_dr 1e4 and 0, on the fitting step's own
+inputs, the inverse8 step's, the avatar4k step's band 0 with its halo row
+and the near-miss scene (one input also in float64), its nonzero pixels
+equal to the plain version's and its values within 1e-5 (float64: 1e-12)
+of their largest magnitude. Times come from CUDA events: a kernel's ``ms`` (and
 ``plain_ms``, ``library_ms``) from back-to-back calls, which count the
 host's time per call when it is the longer; ``device_ms`` (and
 ``library_device_ms``) from replays of a CUDA graph of 20 calls, the time
@@ -124,8 +129,8 @@ GS_HW, GS_CALLS = 512, 10  # grid_scatter's output texture; timed calls of grid_
 # jittered cameras, and a (1, 2) mesh over ranks 0-1; 3 warm-up steps, 10 timed.
 SHARDED_RANKS, SHARDED_MESHES = 4, (("(1, 4)", 4, 1), ("(2, 2)", 4, 2), ("(1, 2) of 4", 2, 1))
 SHARDED_WARMUP, SHARDED_STEPS = 3, 10
-SHARDED_PER_STEP = {"B1 rasterize": 1, "B2 gather_rows": 5, "B3 scatter_rows": 3, "B4 window_accum": 1,
-                    "B5 rasterize_lines": 0}
+SHARDED_PER_STEP = {"B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 3, "B4 window_accum": 1,
+                    "B5 rasterize_lines": 0, "E1 edge_grad": 1}
 
 
 def emit(record: dict) -> None:
@@ -594,6 +599,7 @@ def main() -> int:
         from drtk_tpu_torch import _build
         from drtk_tpu_torch.ops import rasterize as rast
         from drtk_tpu_torch.ops import grid_sample as gs
+        from drtk_tpu_torch.ops import edge_grad as edge_grad_mod
         from drtk_tpu_torch.ops import rasterize_cuda, segment_rows, window_accum
         from drtk_tpu_torch.ops import filter2d_ref
         from drtk_tpu_torch.ops.edge_grad import _stencil_table
@@ -676,7 +682,8 @@ def main() -> int:
     rng = np.random.RandomState(0)
     tables = {9: _face_table(v, vib), 6: _face_table(vt, vib)}  # render's vertex rows, interpolate's uv rows
     b2 = b2_vs_plain("textured", {
-        **tables, 16: torch.from_numpy(rng.randn(1, n_faces, 16).astype(np.float32)).to(dev),  # edge_grad's width
+        # K = 16, the stencil rows' width: a check of B2 alone (no step gathers them since E1)
+        **tables, 16: torch.from_numpy(rng.randn(1, n_faces, 16).astype(np.float32)).to(dev),
     }, index_img)
 
     # 4. B1 vs plain on the entry scene and the textured scene (and, in
@@ -738,7 +745,7 @@ def main() -> int:
     launches = tt.kernel_launch_counts()
     n_steps = WARMUP + STEPS
     if launches != {"B1 rasterize": n_steps, "B2 gather_rows": 2 * n_steps, "B3 scatter_rows": 0,
-                    "B4 window_accum": 0, "B5 rasterize_lines": 0}:
+                    "B4 window_accum": 0, "B5 rasterize_lines": 0, "E1 edge_grad": 0}:
         raise AssertionError(f"main path launches {launches} over {n_steps} steps, expected 1 B1 and 2 B2 per step")
     peak = torch.cuda.max_memory_allocated()
     per_stage = [stage_ms(marks) for marks in step_marks[WARMUP:]]
@@ -899,13 +906,80 @@ def main() -> int:
 
     b4 = b4_vs_plain("textured", v, vi, vt, tex, index_img)
 
+    # E1 vs plain, on the arguments of the launches a path makes (captured by
+    # a stand-in for edge_grad._stencil_cuda): rows mode as the backward
+    # calls it and image mode (edge_grad_image's), each at max_dp_dr 1e4 and
+    # 0; the textured input also in float64. The nonzero pixels must be the
+    # plain version's and the values within 1e-5 (f64: 1e-12) of the largest
+    # magnitude. Bound: per pixel the index (4 B), img and the cotangent (C
+    # values each), and bary (3) and the rows (9), or the image gradient (3),
+    # read or written once, and the table once.
+    def capture_e1(fn) -> list:
+        captured, launch = [], edge_grad_mod._stencil_cuda
+
+        def e1_spy(*args):
+            captured.append(args)
+            return launch(*args)
+
+        edge_grad_mod._stencil_cuda = e1_spy
+        try:
+            fn()
+        finally:
+            edge_grad_mod._stencil_cuda = launch
+        return captured
+
+    def e1_record(args, timed: bool) -> dict:
+        table, idx, img, g, bary = args[:5]
+        got = edge_grad_mod._stencil_cuda(*args)
+        want = edge_grad_mod._stencil_plain(*args)
+        torch.cuda.synchronize()
+        nonzero = (lambda t: (t != 0).any(1)) if bary is None else (lambda t: (t != 0).any(-1))
+        nz_got, nz_want = nonzero(got), nonzero(want)
+        rec = {"max_abs_err": (got - want).abs().max().item(), "rel_err": rel_err(got, want),
+               "nonzero_pixels": int(nz_want.sum()), "nonzero_equal": bool(torch.equal(nz_got, nz_want))}
+        limit = 1e-12 if table.dtype == torch.float64 else 1e-5
+        if not (rec["nonzero_equal"] and rec["rel_err"] <= limit):
+            raise AssertionError(f"E1 {[tuple(a.shape) if torch.is_tensor(a) else a for a in args]}: {rec}, "
+                                 f"limit {limit}")
+        if timed:
+            n, c, h, w = img.shape
+            es = table.element_size()
+            per_pixel = 4 + 2 * c * es + (12 * es if bary is not None else 3 * es)
+            nbytes = n * h * w * per_pixel + table.numel() * es
+            rec.update({
+                "ms": cuda_ms(lambda: edge_grad_mod._stencil_cuda(*args), 50),
+                "device_ms": graph_ms(lambda: edge_grad_mod._stencil_cuda(*args)),
+                "plain_ms": cuda_ms(lambda: edge_grad_mod._stencil_plain(*args), 10),
+                "bytes": nbytes, "bound_ms": nbytes / bw * 1e3, "bound_by": "bytes", "library_ms": None,
+            })
+        return rec
+
+    def e1_vs_plain(label, args, f64=False) -> dict:
+        """E1 against its plain version on one launch's arguments (table,
+        index, img, cotangent, bary, max_dp_dr, y_offset, full_height)."""
+        table, idx, img, g, bary, _, y0, frame_h = args
+        recs = {}
+        for mode in ("rows", "image"):
+            for m in (1e4, 0.0):
+                recs[f"{mode} max_dp_dr={m:g}"] = e1_record(
+                    (table, idx, img, g, bary if mode == "rows" else None, m, y0, frame_h), timed=m > 0)
+        if f64:
+            recs["rows max_dp_dr=10000 float64"] = e1_record(
+                (table.double(), idx, img.double(), g.double(), bary.double(), 1e4, y0, frame_h), timed=True)
+        n, c, h, w = img.shape
+        emit({"phase": "E1 vs plain", "input": label, "batch": n, "channels": c, "H": h, "W": w,
+              "faces": int(table.shape[1]), "y_offset": y0, "full_height": frame_h,
+              "discontinuity_pixels": int(((idx[:, :-1, :-1] != idx[:, :-1, 1:])
+                                           | (idx[:, :-1, :-1] != idx[:, 1:, :-1])).sum()), **recs})
+        return recs
+
     # 8. The main path of this slice: the fitting step at full size, with
     # gradients to v, vt and tex, then bench_textured's v-only gradient.
     expected = {
-        ("v", "vt", "tex"): {"B1 rasterize": 1, "B2 gather_rows": 5, "B3 scatter_rows": 3, "B4 window_accum": 1,
-                             "B5 rasterize_lines": 0},
-        ("v",): {"B1 rasterize": 1, "B2 gather_rows": 5, "B3 scatter_rows": 2, "B4 window_accum": 0,
-                 "B5 rasterize_lines": 0},
+        ("v", "vt", "tex"): {"B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 3, "B4 window_accum": 1,
+                             "B5 rasterize_lines": 0, "E1 edge_grad": 1},
+        ("v",): {"B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 2, "B4 window_accum": 0,
+                 "B5 rasterize_lines": 0, "E1 edge_grad": 1},
     }
     fit = {}
     for wrt, per_step in expected.items():
@@ -964,6 +1038,9 @@ def main() -> int:
     fit[("v", "vt", "tex")].update({"loss_rel_err_vs_plain": loss_err, "grad_rel_err_vs_plain": grad_err})
     for rec in fit.values():
         emit(rec)
+    (e1_args,) = capture_e1(lambda: fit_step(v, vi, vt, tex, H, W, index_img=idx_k))
+    e1 = {"textured": e1_vs_plain("textured fitting step", e1_args, f64=True)}
+    del e1_args
 
     # 10. B5 vs plain, every edge visible: the entry scene (canvas-sized
     # triangles), the textured scene, the inverse8 views through transform,
@@ -1076,8 +1153,8 @@ def main() -> int:
     # the same cameras; then held against the plain pipeline on the kernel's
     # index image, each side from a copy of the current parameters with an
     # optimizer of its own. Phase 16 runs it through lenses.
-    inv_per_step = {"B1 rasterize": 1, "B2 gather_rows": 5, "B3 scatter_rows": 2, "B4 window_accum": 1,
-                    "B5 rasterize_lines": 0}
+    inv_per_step = {"B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 2, "B4 window_accum": 1,
+                    "B5 rasterize_lines": 0, "E1 edge_grad": 1}
 
     def multiview_step(label, step_cams, steps) -> tuple[dict, torch.Tensor, torch.Tensor]:
         """The step's record, and the current vertices in pixel space and
@@ -1152,6 +1229,23 @@ def main() -> int:
 
     inv_rec, inv_v_pix, idx_k = multiview_step("inverse8 step", cams, STEPS)
     inv_launches = inv_rec["launches"]
+    with torch.no_grad():
+        inv_gt, _ = render_multiview(inv["v_world"], inv["vi"], inv["vt"], inv["tex_gt"], cams, INV_HW, INV_HW)
+    inv_p = ((inv["v_world"] + 0.02).requires_grad_(), torch.full_like(inv["tex_gt"], 0.5).requires_grad_())
+    (e1_args,) = capture_e1(lambda: inverse8_step(inv_p, torch.optim.Adam(inv_p, lr=1e-3), inv["vi"], inv["vt"], cams,
+                                                  inv_gt, INV_HW, INV_HW))
+    e1["inverse8"] = e1_vs_plain("inverse8 step", e1_args)
+    # ...and the near-miss scene (edges at a pixel diamond's reach, to within
+    # ulps), a seeded image and cotangent of 4 channels.
+    nm_v = torch.from_numpy(near["v"]).to(dev)
+    nm_vi = rast.broadcast_vi(torch.from_numpy(near["vi"]).to(dev), 1)
+    with torch.no_grad():
+        nm_idx = tt.rasterize(nm_v, nm_vi, 64, 128)
+        _, nm_bary = tt.render(nm_v, nm_vi, nm_idx)
+    nm_img = torch.rand((1, 4, 64, 128), generator=gen, device=dev)
+    nm_g = torch.randn((1, 4, 64, 128), generator=gen, device=dev)
+    e1["near_miss"] = e1_vs_plain("near_miss", (_stencil_table(nm_v, nm_vi), nm_idx, nm_img, nm_g, nm_bary, 1e4, 0, -1))
+    del e1_args, inv_p, inv_gt
     # ...its B1 launch held against the plain rasterizer on the same views
     # (8 x 512^2, 12,800 triangles each).
     b1["inverse8"] = b1_vs_plain("inverse8", inv_v_pix, inv["vi"], INV_HW, INV_HW)
@@ -1194,8 +1288,8 @@ def main() -> int:
     t_phase = time.perf_counter()
     mv_levels = [torch.from_numpy(x).to(dev) for x in box_pyramid(inv["tex_gt"].cpu().numpy(), 4)]
     mv_w = torch.randn((INV_VIEWS, 4, INV_HW, INV_HW), generator=gen, device=dev)
-    mv_per_call = {"B1 rasterize": 1, "B2 gather_rows": 7, "B3 scatter_rows": 2, "B4 window_accum": 1,
-                   "B5 rasterize_lines": 0}
+    mv_per_call = {"B1 rasterize": 1, "B2 gather_rows": 6, "B3 scatter_rows": 2, "B4 window_accum": 1,
+                   "B5 rasterize_lines": 0, "E1 edge_grad": 1}
 
     def mipmap_views(impl="auto", index_img=None, ev=None):
         vw = inv["v_world"].detach().requires_grad_()
@@ -1399,10 +1493,10 @@ def main() -> int:
     av_args = (av["vi"], av["vt"], av["ray_o"], av["ray_d"], AV_HW, AV_BANDS)
     av_faces, hb = int(av["vi"].shape[0]), AV_HW // AV_BANDS
     # per band: B1 and B2 (render K=9, interpolate K=6) in the forward and
-    # again in its recompute; B2 in interpolate's and render's backward and
-    # edge_grad's (K=16); B3 in render's backward and edge_grad's; B4 once.
-    av_per_step = {"B1 rasterize": 2 * AV_BANDS, "B2 gather_rows": 7 * AV_BANDS, "B3 scatter_rows": 2 * AV_BANDS,
-                   "B4 window_accum": AV_BANDS, "B5 rasterize_lines": 0}
+    # again in its recompute; B2 in interpolate's and render's backward; E1
+    # in edge_grad's; B3 in render's backward and edge_grad's; B4 once.
+    av_per_step = {"B1 rasterize": 2 * AV_BANDS, "B2 gather_rows": 6 * AV_BANDS, "B3 scatter_rows": 2 * AV_BANDS,
+                   "B4 window_accum": AV_BANDS, "B5 rasterize_lines": 0, "E1 edge_grad": AV_BANDS}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tt.reset_kernel_launch_counts()
@@ -1465,8 +1559,15 @@ def main() -> int:
         g_av = 2.0 * img_av / img_av.numel()  # the loss's cotangent of the shaded image
     b2_av = b2_vs_plain("avatar4k band 0", {9: _face_table(v_av, vib_av), 6: _face_table(av["vt"], vib_av)},
                         idx_av[:, :hb])
-    rows_eg, idx_eg = banded._edge_grad_band_rows(v_av, vib_av, banded._pad_frame(img_av, g_av, bary_av, idx_av), 0,
-                                                  hb, AV_HW, 1e4)
+    e1_band = capture_e1(lambda: banded._edge_grad_band_rows(
+        v_av, vib_av, banded._pad_frame(img_av, g_av, bary_av, idx_av), 0, hb, AV_HW, 1e4))
+    if len(e1_band) != 1:
+        raise AssertionError(f"avatar4k band 0: the banded edge_grad launched E1 {len(e1_band)} times, expected once")
+    e1["avatar4k_band0"] = e1_vs_plain("avatar4k band 0 and halo", e1_band[0])
+    rows_eg, idx_eg = edge_grad_mod._stencil_cuda(*e1_band[0]), e1_band[0][1]
+    del e1_band
+    # (B2 at K = 16 on the band's stencil rows: a check of B2 alone, since E1
+    # gathers them itself)
     b2_av.update(b2_vs_plain("avatar4k band 0 and halo", {16: _stencil_table(v_av, vib_av)}, idx_eg))
     b3_av = b3_record("avatar4k band 0 edge_grad", rows_eg, idx_eg, av_faces)
     b4_args, b4_launch = [], window_accum._window_accumulate_cuda
@@ -1544,7 +1645,7 @@ def main() -> int:
     from drtk_tpu_torch.ops import interpolate as interp_mod
 
     im_per_call = {"B1 rasterize": 0, "B2 gather_rows": 2, "B3 scatter_rows": 2, "B4 window_accum": 0,
-                   "B5 rasterize_lines": 0}
+                   "B5 rasterize_lines": 0, "E1 edge_grad": 0}
     im_launches = {k: 0 for k in im_per_call}
     im_scenes = {"textured": (v, vi, index_img),
                  "inverse8": (inv_v_pix.detach(), inv["vi"], idx_k)}
@@ -1643,13 +1744,14 @@ def main() -> int:
     sharded_launches = row_sharded_phase()
 
     # 14. The kernels, with the numbers of this run; times per fitting step
-    # (B2: K=9 and K=6 in the forward, again in the backward, and K=16 in
-    # edge_grad's backward; B3: K=9 in render's and edge_grad's backward,
-    # K=6 in interpolate's).
+    # (B2: K=9 and K=6 in the forward, again in the backward; B3: K=9 in
+    # render's and edge_grad's backward, K=6 in interpolate's; E1 once, in
+    # edge_grad's backward, in rows mode). B2's K=16 launches are a check of
+    # B2 alone: since E1, no step makes them.
     b2_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "library_device_ms")
 
     def b2_step(key, recs=b2):
-        return 2 * recs[9][key] + 2 * recs[6][key] + recs[16][key]
+        return 2 * recs[9][key] + 2 * recs[6][key]
 
     def b3_step(key):
         return 2 * b3[9][key] + b3[6][key]
@@ -1678,7 +1780,7 @@ def main() -> int:
                                              "pairs", "big_list", "bins_bytes")} for sc, r in b1.items()}},
         {"name": "B2 segment_rows._gather_kernel", "route": "cuda",
          "source": "drtk_tpu_torch/csrc/gather_rows.cu", "replaces": "drtk_tpu/ops/segment_rows.py:359",
-         "launches": main_launches["B2 gather_rows"], "launches_per_step": 5, "max_abs_err": 0.0,
+         "launches": main_launches["B2 gather_rows"], "launches_per_step": 4, "max_abs_err": 0.0,
          "ms": b2_step("ms"), "device_ms": b2_step("device_ms"), "plain_ms": b2_step("plain_ms"),
          "bound_ms": b2_step("bound_ms"), "bound_by": "bytes", "library_ms": b2_step("library_ms"),
          "library_device_ms": b2_step("library_device_ms"),
@@ -1714,9 +1816,17 @@ def main() -> int:
          "device_ms": b5["inverse8"]["device_ms"], "plain_ms": b5["inverse8"]["plain_ms"], "bound_ms": b5["inverse8"]["bound_ms"],
          "bound_by": b5["inverse8"]["bound_by"], "full_test_ops_ms": b5["inverse8"]["full_test_ops_ms"],
          "key_buffer_ms": b5["inverse8"]["key_buffer_ms"], "library_ms": None},
+        {"name": "E1 edge_grad CRD stencil", "route": "cuda", "source": "drtk_tpu_torch/csrc/edge_grad.cu",
+         "replaces": "drtk_tpu/ops/edge_grad.py:114 _edge_grad_backward (B2's K=16 gather + XLA)",
+         "launches": main_launches["E1 edge_grad"], "launches_per_step": 1,
+         **{k: e1["textured"]["rows max_dp_dr=10000"][k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                                                                    "bound_ms", "bound_by", "library_ms")},
+         "by_input": {label: {mode: {k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "rel_err",
+                                                       "nonzero_equal") if k in r} for mode, r in recs.items()}
+                      for label, recs in e1.items()}},
     ]
     for row, key in zip(kernels, ("B1 rasterize", "B2 gather_rows", "B3 scatter_rows", "B4 window_accum",
-                                  "B5 rasterize_lines")):
+                                  "B5 rasterize_lines", "E1 edge_grad")):
         row["launches_by_path"] = paths(key)
     emit({"kernels": kernels})
     return finish(smi)

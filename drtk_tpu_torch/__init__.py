@@ -24,12 +24,14 @@ multi-device layer is :mod:`drtk_tpu_torch.parallel` (``sharding``,
 ``torch.distributed`` mesh, edge_grad's halo row passed between them.
 On CUDA tensors the rasterizer's
 resolve (B1), its wireframe resolve (B5), the per-pixel face-row gather
-(B2), the pixel-to-face row accumulation (B3) and the texture-gradient
-scatter, which is also grid_scatter's splat (B4), run as hand-written kernels for Hopper (sm_90a), built with
+(B2), the pixel-to-face row accumulation (B3), the texture-gradient
+scatter, which is also grid_scatter's splat (B4), and edge_grad's backward
+stencil (E1) run as hand-written kernels for Hopper (sm_90a), built with
 nvcc at first use; on CPU tensors their plain PyTorch versions run.
 Nothing is compiled when the package is imported.
 """
 
+from drtk_tpu_torch.ops import edge_grad as _edge_grad
 from drtk_tpu_torch.ops import rasterize_cuda as _rasterize_cuda
 from drtk_tpu_torch.ops import segment_rows as _segment_rows
 from drtk_tpu_torch.ops import window_accum as _window_accum
@@ -131,6 +133,7 @@ def kernel_launch_counts() -> dict[str, int]:
         "B3 scatter_rows": _segment_rows.scatter_launches,
         "B4 window_accum": _window_accum.launches,
         "B5 rasterize_lines": _rasterize_cuda.lines_launches,
+        "E1 edge_grad": _edge_grad.launches,
     }
 
 
@@ -141,3 +144,4 @@ def reset_kernel_launch_counts() -> None:
     _segment_rows.scatter_launches = 0
     _window_accum.launches = 0
     _rasterize_cuda.lines_launches = 0
+    _edge_grad.launches = 0

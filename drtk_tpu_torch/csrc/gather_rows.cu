@@ -28,8 +28,8 @@
 //      is one row chunk and is read as a vector; otherwise (K = 6, 9) its
 //      values are read with scalar __ldg, since those rows are not 16-byte
 //      aligned.
-//   K = 6, 9 and 16 (render, interpolate, edge_grad) are template constants,
-//   so the division that maps an element of the run to its (pixel, k) is a
+//   K = 6 and 9 (interpolate, render) are template constants, so the
+//   division that maps an element of the run to its (pixel, k) is a
 //   multiply and shift, done once per vector; any other K runs the same
 //   kernel with K at run time. Offsets within a batch are 32-bit (the
 //   wrapper raises when P*K or F*K reaches 2^31): no 64-bit division.
@@ -134,9 +134,6 @@ int launch(const void* table, const void* index, void* out, int32_t n_batch,
       break;
     case 9:
       gather_rows_kernel<T, 9><<<grid, kThreads, 0, s>>>(t, i, o, n_pix, n_faces, k_dim, aligned);
-      break;
-    case 16:
-      gather_rows_kernel<T, 16><<<grid, kThreads, 0, s>>>(t, i, o, n_pix, n_faces, k_dim, aligned);
       break;
     default:
       gather_rows_kernel<T, 0><<<grid, kThreads, 0, s>>>(t, i, o, n_pix, n_faces, k_dim, aligned);

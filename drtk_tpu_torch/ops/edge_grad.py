@@ -13,9 +13,12 @@ the vertices through interpolate's VJP with ``bary_img`` detached:
 ``bary x g`` summed to face rows by kernel B3, then to vertices with
 ``index_add_``.
 
-The stencil's per-pixel triangle corners and face normals arrive as one
-16-float row through kernel B2; the stencil's elementwise math is torch ops,
-as it is plain XLA in the JAX package. The backward takes a row tile
+The stencil, with its gather of each pixel's 16-float face row (corners,
+normal) by index and, in the backward, the ``bary x g`` rows, is kernel E1
+(``csrc/edge_grad.cu``) on a CUDA tensor and :func:`_stencil_plain`, B2's
+plain gather and elementwise torch ops, on a CPU tensor
+(:func:`edge_grad_stencil`). In the JAX package it is B2's Pallas gather
+and XLA that ``jax.jit`` fuses. The backward takes a row tile
 (``y_offset``, ``full_height``), as the JAX backward does: the pixel grid
 is the global rows, and stencil centres on the frame's last row are
 dropped. :func:`~drtk_tpu_torch.parallel.banded.edge_grad_estimator_banded`
@@ -29,17 +32,24 @@ block and that halo row to the rank's part of the vertex gradient.
 
 from __future__ import annotations
 
+import ctypes
 import operator
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
+from drtk_tpu_torch import _build
 from drtk_tpu_torch.ops.math import autocast_f32, epsclamp, next_rank_rows
 from drtk_tpu_torch.ops.rasterize import broadcast_vi
 from drtk_tpu_torch.ops.render import _face_table, _pixel_grid, _pixels_to_verts
-from drtk_tpu_torch.ops.segment_rows import gather_rows_by_index
+from drtk_tpu_torch.ops.segment_rows import _gather_rows_plain
 
 __all__ = ["edge_grad_estimator", "edge_grad_image"]
+
+# Launches of kernel E1 since the last reset (see
+# drtk_tpu_torch.kernel_launch_counts).
+launches = 0
 
 
 def _safe_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -118,16 +128,26 @@ def _stencil_table(v_pix: torch.Tensor, vi: torch.Tensor) -> torch.Tensor:
     )
 
 
-def _edge_grad_backward(
-    v_pix, vi, img, index_img, grad_output, max_dp_dr: float, impl="auto", y_offset: int = 0,
-    full_height: int | None = None,
+_C_ENTRY = {torch.float32: "drtk_edge_grad_f32", torch.float64: "drtk_edge_grad_f64"}
+_ARGTYPES = (
+    [ctypes.c_void_p] * 6 + [ctypes.c_int32] * 5 + [ctypes.c_int64] * 7 + [ctypes.c_double]
+    + [ctypes.c_int32] * 2 + [ctypes.c_void_p]
+)
+_MAX_BATCH = 65535  # E1 takes the batch from blockIdx.y
+
+
+def _stencil_plain(
+    table, index_img, img, grad_output, bary_img, max_dp_dr: float, y_offset: int = 0, full_height: int = -1
 ):
-    """The image-space gradient [N, 3, H, W] (``drtk_tpu/ops/edge_grad.py:
-    114-276``). With ``full_height``, the block holds rows
-    ``[y_offset, y_offset + H)`` of a ``full_height``-row frame: the pixel
-    grid takes the global rows and stencil centres on global row
-    ``full_height - 1`` are dropped (``:259-264``)."""
-    dtype = v_pix.dtype
+    """Plain PyTorch version of kernel E1 (``drtk_tpu/ops/edge_grad.py:
+    114-276``): the CRD stencil of the [N, F, 16] ``table`` rows (B2's
+    gather, then elementwise ops), the image gradient [N, 3, H, W]; with
+    ``bary_img`` the rows ``bary[k] * out[j]`` [N, H, W, 9] instead. With
+    ``full_height >= 0`` the block holds rows ``[y_offset, y_offset + H)``
+    of a ``full_height``-row frame: the pixel grid takes the global rows and
+    stencil centres on global row ``full_height - 1`` are dropped
+    (``:259-264``)."""
+    dtype = table.dtype
     n, c, h, w = img.shape
     sh, sw = h - 1, w - 1
 
@@ -143,10 +163,10 @@ def _edge_grad_backward(
     x_both = c_valid & r_valid
     y_both = c_valid & d_valid
 
-    # One packed 16-float row per pixel (corners, normal, 4 zeros) through
-    # kernel B2; background pixels read zero rows, i.e. degenerate
-    # triangles that cover nothing. The R and D rows are shifted slices.
-    rows_full = gather_rows_by_index(_stencil_table(v_pix, vi), idx, impl)  # [N, H, W, 16]
+    # One packed 16-float row per pixel (corners, normal, 4 zeros);
+    # background pixels read zero rows, i.e. degenerate triangles that cover
+    # nothing. The R and D rows are shifted slices.
+    rows_full = _gather_rows_plain(table, idx)  # [N, H, W, 16]
     rows_c = rows_full[:, :sh, :sw]
     rows_r = rows_full[:, :sh, 1:]
     rows_d = rows_full[:, 1:, :sw]
@@ -154,7 +174,7 @@ def _edge_grad_backward(
     pts_r = rows_r[..., :9].reshape(rows_r.shape[:-1] + (3, 3))
     pts_d = rows_d[..., :9].reshape(rows_d.shape[:-1] + (3, 3))
 
-    px, py = _pixel_grid(sh, sw, y_offset, dtype, v_pix.device)
+    px, py = _pixel_grid(sh, sw, y_offset, dtype, table.device)
 
     def in_tri(pts, ox, oy):
         return _pix_in_tri(pts[..., 0, :2], pts[..., 1, :2], pts[..., 2, :2], px + ox, py + oy)
@@ -205,19 +225,147 @@ def _edge_grad_backward(
     gvd_y = gvd_y + torch.where(vert_int, gdy * dpy_d[..., 0], zero)
     gvd_z = torch.where(vert_int, gdy * dpy_d[..., 1], zero)
 
-    gvc = torch.stack([gvc_x, gvc_y, gvc_zx + gvc_zy], dim=1).to(dtype)  # [N, 3, sh, sw]
-    gvr = torch.stack([gvr_x, zero, gvr_z], dim=1).to(dtype)
-    gvd = torch.stack([zero, gvd_y, gvd_z], dim=1).to(dtype)
-    if full_height is not None:
-        row_ok = ((torch.arange(sh, device=v_pix.device) + y_offset) < (full_height - 1)).to(dtype)[None, None, :, None]
+    gvc = torch.stack([gvc_x, gvc_y, gvc_zx + gvc_zy], dim=1)  # [N, 3, sh, sw]
+    gvr = torch.stack([gvr_x, zero, gvr_z], dim=1)
+    gvd = torch.stack([zero, gvd_y, gvd_z], dim=1)
+    if full_height >= 0:
+        row_ok = ((torch.arange(sh, device=table.device) + y_offset) < (full_height - 1)).to(dtype)
+        row_ok = row_ok[None, None, :, None]
         gvc, gvr, gvd = gvc * row_ok, gvr * row_ok, gvd * row_ok
 
     # Negated adds into the three stencil positions.
-    out = torch.zeros((n, 3, h, w), dtype=dtype, device=v_pix.device)
+    out = torch.zeros((n, 3, h, w), dtype=dtype, device=table.device)
     out[:, :, :sh, :sw] -= gvc
     out[:, :, :sh, 1:] -= gvr
     out[:, :, 1:, :sw] -= gvd
+    if bary_img is None:
+        return out
+    # interpolate's VJP with bary detached, per pixel: bary x g.
+    g_rows = out.movedim(1, -1)  # [N, H, W, 3(coord)]
+    bary = bary_img.movedim(1, -1)  # [N, H, W, 3(corner)]
+    return (bary[..., :, None] * g_rows[..., None, :]).reshape(n, h, w, 9)
+
+
+def _rows_layout(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [N, C, H, W] (or [N, H, W]) itself where its rows are
+    contiguous, which E1 reads through its batch and channel strides (a
+    band's slice of a frame is), else a contiguous copy."""
+    if x.stride(-1) == 1 and (x.shape[-2] <= 1 or x.stride(-2) == x.shape[-1]):
+        return x
+    return x.contiguous()
+
+
+def _stencil_cuda(
+    table, index_img, img, grad_output, bary_img, max_dp_dr: float, y_offset: int = 0, full_height: int = -1
+):
+    """Launch kernel E1 on the tensors' device and current stream."""
+    if table.dtype not in _C_ENTRY:
+        raise TypeError(f"edge_grad stencil: no kernel for {table.dtype} tables")
+    if index_img.dtype != torch.int32:
+        raise TypeError(f"edge_grad stencil: expected int32 index, got {index_img.dtype}")
+    tensors = [table, index_img, img, grad_output] + ([] if bary_img is None else [bary_img])
+    if table.device.type != "cuda" or any(t.device != table.device for t in tensors):
+        raise ValueError("edge_grad stencil: every tensor must lie on one CUDA device")
+    return _launch(
+        lambda: _build.entry("edge_grad", _C_ENTRY[table.dtype], _ARGTYPES),
+        torch.cuda.current_stream(table.device).cuda_stream,
+        table, index_img, img, grad_output, bary_img, max_dp_dr, y_offset, full_height,
+    )
+
+
+def _launch(entry, stream, table, index_img, img, grad_output, bary_img, max_dp_dr, y_offset, full_height):
+    """Call E1's C entry (``entry()``, looked up once the limits pass) on
+    ``stream`` for tensors of one device whose types
+    :func:`_stencil_cuda` checked: the limits, the layouts E1 reads, the
+    output and the launch count."""
+    global launches
+    n, c, h, w = img.shape
+    f_cnt = table.shape[1]
+
+    def check_limits(extents):
+        if n > _MAX_BATCH or max(extents) >= 2**31:
+            raise ValueError(
+                f"edge_grad stencil: the kernel takes at most {_MAX_BATCH} batches and 32-bit offsets within a "
+                f"batch, got N={n}, C={c}, H={h}, W={w}, F={f_cnt}"
+            )
+
+    check_limits([h * w * (9 if bary_img is not None else 3), f_cnt * 16, c * h * w])  # before any copy
+    table = table.contiguous()
+    if table.data_ptr() % 16:  # E1 reads the rows as 16-byte vectors
+        table = table.clone()
+    index_img, img, grad_output = _rows_layout(index_img), _rows_layout(img), _rows_layout(grad_output)
+    bary_img = None if bary_img is None else _rows_layout(bary_img)
+    check_limits([(c - 1) * t.stride(1) + h * w for t in (img, grad_output)]
+                 + ([] if bary_img is None else [2 * bary_img.stride(1) + h * w]))
+    if bary_img is None:
+        out = torch.empty((n, 3, h, w), dtype=table.dtype, device=table.device)
+        bary_ptr, bary_sn, bary_sc = None, 0, 0
+    else:
+        out = torch.empty((n, h, w, 9), dtype=table.dtype, device=table.device)
+        bary_ptr, bary_sn, bary_sc = bary_img.data_ptr(), bary_img.stride(0), bary_img.stride(1)
+    y_end = h - 1 if full_height < 0 else max(0, min(h - 1, full_height - 1 - y_offset))
+    err = entry()(
+        table.data_ptr(), index_img.data_ptr(), img.data_ptr(), grad_output.data_ptr(), bary_ptr, out.data_ptr(),
+        n, c, h, w, f_cnt, index_img.stride(0), img.stride(0), img.stride(1), grad_output.stride(0),
+        grad_output.stride(1), bary_sn, bary_sc, float(max_dp_dr), y_offset, y_end, stream,
+    )
+    _build.check("edge_grad", err, "edge_grad kernel")
+    launches += 1
     return out
+
+
+def edge_grad_stencil(
+    table: torch.Tensor,
+    index_img: torch.Tensor,
+    img: torch.Tensor,
+    grad_output: torch.Tensor,
+    bary_img: Optional[torch.Tensor],
+    max_dp_dr: float,
+    y_offset: int = 0,
+    full_height: int = -1,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """The backward's CRD stencil: kernel E1 on CUDA tensors, its plain
+    version on CPU tensors or with ``impl="plain"``.
+
+    Args:
+        table: [N, F, 16] float32 or float64 stencil rows
+            (:func:`_stencil_table`).
+        index_img: [N, H, W] int32 index image.
+        img, grad_output: [N, C, H, W] image and its cotangent.
+        bary_img: [N, 3, H, W] barycentrics for rows mode, or None for
+            image mode.
+        max_dp_dr: magnitude clamp for dp/dr (0.0 disables it).
+        y_offset, full_height: the block's first global row and the frame's
+            height on a row tile; ``full_height`` -1 means no row tile.
+        impl: "auto" or "plain", as for the other kernels.
+
+    Returns:
+        Image mode: the image gradient [N, 3, H, W]. Rows mode: the rows
+        ``bary[k] * out[j]`` at ``3k + j``, [N, H, W, 9]. Of the table's
+        dtype; ``img``, ``grad_output`` and ``bary_img`` are cast to it.
+    """
+    dtype = table.dtype
+    img, grad_output = img.to(dtype), grad_output.to(dtype)
+    bary_img = None if bary_img is None else bary_img.to(dtype)
+    if impl == "plain" or (impl == "auto" and table.device.type == "cpu"):
+        return _stencil_plain(table, index_img, img, grad_output, bary_img, max_dp_dr, y_offset, full_height)
+    if impl == "auto" and table.device.type == "cuda":
+        return _stencil_cuda(table, index_img, img, grad_output, bary_img, max_dp_dr, y_offset, full_height)
+    raise ValueError(f"edge_grad stencil: impl {impl!r} on device {table.device}")
+
+
+def _edge_grad_backward(
+    v_pix, vi, img, index_img, grad_output, max_dp_dr: float, impl="auto", y_offset: int = 0,
+    full_height: int | None = None,
+):
+    """The image-space gradient [N, 3, H, W] (``drtk_tpu/ops/edge_grad.py:
+    114-276``); ``y_offset`` and ``full_height`` as for
+    :func:`edge_grad_stencil` (None: no row tile)."""
+    return edge_grad_stencil(
+        _stencil_table(v_pix, vi), index_img, img, grad_output, None, max_dp_dr, y_offset,
+        -1 if full_height is None else full_height, impl,
+    )
 
 
 def _edge_grad_block_rows(v_pix, vi, block, y0: int, height: int, max_dp_dr: float, impl="auto"):
@@ -227,13 +375,8 @@ def _edge_grad_block_rows(v_pix, vi, block, y0: int, height: int, max_dp_dr: flo
     holds those rows and one halo row below them (the stencil's D leg):
     the next rows of the frame, or a background row (zeros, index -1)."""
     img_b, g_b, bary_b, idx_b = block
-    gv_img = _edge_grad_backward(
-        v_pix, vi, img_b, idx_b, g_b, max_dp_dr, impl, y_offset=y0, full_height=height
-    )  # [N, 3, hb+1, W]
-    g = gv_img.movedim(1, -1)  # [N, hb+1, W, 3(coord)]
-    bary = bary_b.movedim(1, -1).to(g.dtype)  # [N, hb+1, W, 3(corner)]
-    n, rows, w, _ = g.shape
-    return (bary[..., :, None] * g[..., None, :]).reshape(n, rows, w, 9), idx_b
+    rows = edge_grad_stencil(_stencil_table(v_pix, vi), idx_b, img_b, g_b, bary_b, max_dp_dr, y0, height, impl)
+    return rows, idx_b
 
 
 class _EdgeGrad(torch.autograd.Function):
@@ -249,14 +392,12 @@ class _EdgeGrad(torch.autograd.Function):
         v_pix, vi, bary_img, img, index_img = ctx.saved_tensors
         grad_v_pix = None
         if ctx.needs_input_grad[0]:
-            n, h, w = index_img.shape
-            g_img = _edge_grad_backward(v_pix, vi, img, index_img, grad_output, ctx.max_dp_dr, ctx.impl)
-            # interpolate's VJP with bary detached: bary x g per pixel, then
-            # pixels -> faces (B3, background dropped) -> vertices.
-            g = g_img.movedim(1, -1)  # [N, H, W, 3(coord)]
-            bary = bary_img.movedim(1, -1).to(g.dtype)  # [N, H, W, 3(corner)]
-            contrib = (bary[..., :, None] * g[..., None, :]).reshape(n, h, w, 9)
-            grad_v_pix = _pixels_to_verts(contrib, index_img, vi, v_pix.shape[1], ctx.impl)
+            # interpolate's VJP with bary detached: bary x g per pixel (E1's
+            # rows), then pixels -> faces (B3, background dropped) -> vertices.
+            rows = edge_grad_stencil(
+                _stencil_table(v_pix, vi), index_img, img, grad_output, bary_img, ctx.max_dp_dr, impl=ctx.impl
+            )
+            grad_v_pix = _pixels_to_verts(rows, index_img, vi, v_pix.shape[1], ctx.impl)
         grad_img = grad_output if ctx.needs_input_grad[3] else None
         return grad_v_pix, None, None, grad_img, None, None, None
 
@@ -300,7 +441,7 @@ def edge_grad_estimator(
     v_pix_img_hook: Optional[Callable[[torch.Tensor], None]] = None,
     max_dp_dr: float = 1e4,
     impl: str = "auto",
-    group=None,
+    group: Optional[dist.ProcessGroup] = None,
     y_offset: int = 0,
     full_height: int | None = None,
 ) -> torch.Tensor:
@@ -319,7 +460,7 @@ def edge_grad_estimator(
         v_pix_img_hook: unsupported, as in the JAX package; call
             :func:`edge_grad_image` for the image-space gradient instead.
         max_dp_dr: magnitude clamp for dp/dr (0.0 disables it).
-        impl: "auto" runs kernels B2 and B3 on CUDA tensors; "plain" runs
+        impl: "auto" runs kernels E1 and B3 on CUDA tensors; "plain" runs
             their plain versions on any device.
         group: a ``torch.distributed`` process group whose ranks hold
             consecutive row blocks of one frame, in rank order (the "pix"

@@ -139,7 +139,7 @@ def make_resampling_kernel(
     m: int = 1,
     freq_div: float = 1.0,
     gain: float = 1.0,
-    device="cuda",
+    device: str | torch.device = "cuda",
 ) -> torch.Tensor:
     """A 1-D low-pass resampling filter of ``n_taps * m`` float32 taps on
     ``device`` ("cuda" raises when CUDA is absent). The tensor is cached per

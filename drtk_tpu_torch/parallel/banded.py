@@ -19,7 +19,7 @@ gradients then differ only by summation order.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
@@ -40,7 +40,7 @@ def _band_height(height: int, n_bands: int) -> int:
     return height // n_bands
 
 
-def map_row_bands(band_fn: Callable, height: int, n_bands: int, remat: bool = True):
+def map_row_bands(band_fn: Callable, height: int, n_bands: int, remat: bool = True) -> Any:
     """Map ``band_fn`` over ``n_bands`` row bands and merge to full height.
 
     Args:

@@ -28,6 +28,7 @@ vertices, the pyramid and the MSI texture.
 from __future__ import annotations
 
 import math
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
@@ -193,13 +194,13 @@ def fit_step(
     tex: torch.Tensor,
     h: int,
     w: int,
-    wrt=FIT_LEAVES,
+    wrt: Sequence[str] = FIT_LEAVES,
     index_img: torch.Tensor | None = None,
     weight: torch.Tensor | None = None,
-    device="cuda",
+    device: str | torch.device = "cuda",
     impl: str = "auto",
     stage_times: list | None = None,
-):
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One fitting step: render the textured mesh, take
     :func:`textured_loss`, and run one backward.
 
@@ -248,11 +249,11 @@ def render_multiview(
     cams: dict,
     h: int,
     w: int,
-    device="cuda",
+    device: str | torch.device = "cuda",
     impl: str = "auto",
     stage_times: list | None = None,
     index_img: torch.Tensor | None = None,
-):
+) -> tuple[torch.Tensor, torch.Tensor]:
     """Render one mesh from every camera, op for op as the forward of
     ``bench.py:bench_inverse8``: broadcast to the views, ``transform``,
     rasterize, render, interpolate the uvs, bilinear border ``grid_sample``
@@ -327,14 +328,14 @@ def render_mipmap_multiview(
     v_world: torch.Tensor,
     vi: torch.Tensor,
     vt: torch.Tensor,
-    levels,
+    levels: Sequence[torch.Tensor],
     cams: dict,
     h: int,
     w: int,
-    device="cuda",
+    device: str | torch.device = "cuda",
     impl: str = "auto",
     index_img: torch.Tensor | None = None,
-):
+) -> tuple[torch.Tensor, torch.Tensor]:
     """Render one mesh from every camera with mipmapped anisotropic
     shading, op for op as ``examples/04_rendering_meshes.py`` (its lines
     38-62) per view: ``transform``, rasterize, render, interpolate the uvs,
@@ -384,7 +385,7 @@ def render_mipmap_multiview(
 
 
 def inverse8_step(
-    params,
+    params: tuple[torch.Tensor, torch.Tensor],
     optimizer: torch.optim.Optimizer,
     vi: torch.Tensor,
     vt: torch.Tensor,
@@ -392,11 +393,11 @@ def inverse8_step(
     img_gt: torch.Tensor,
     h: int,
     w: int,
-    device="cuda",
+    device: str | torch.device = "cuda",
     impl: str = "auto",
     stage_times: list | None = None,
     index_img: torch.Tensor | None = None,
-):
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One training step of ``bench.py:bench_inverse8``: render every view
     (:func:`render_multiview`), take ``mean((img - img_gt)**2)``, run one
     backward to the world vertices and the texture, and update them with
@@ -532,9 +533,11 @@ def avatar4k_background(ray_o, ray_d, msi_tex, h: int) -> torch.Tensor:
     return F.interpolate(bg_img, size=(h, h), mode="bilinear", align_corners=False, antialias=False)
 
 
-def avatar4k_step(params, optimizer: torch.optim.Optimizer, vi, vt, ray_o, ray_d, h: int, n_bands: int = 4,
-                  remat: bool = True, device="cuda", impl: str = "auto", stage_times: list | None = None,
-                  index_img: torch.Tensor | None = None):
+def avatar4k_step(params: tuple[torch.Tensor, Sequence[torch.Tensor], torch.Tensor],
+                  optimizer: torch.optim.Optimizer, vi: torch.Tensor, vt: torch.Tensor, ray_o: torch.Tensor,
+                  ray_d: torch.Tensor, h: int, n_bands: int = 4, remat: bool = True,
+                  device: str | torch.device = "cuda", impl: str = "auto", stage_times: list | None = None,
+                  index_img: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
     """One training step of ``bench.bench_avatar4k`` (``bench.py:401-453``):
     :func:`avatar4k_loss`, one backward to the vertices, the mip levels and
     the MSI texture, and an update with ``optimizer``

@@ -217,7 +217,7 @@ def _smallest_positive_root(coef: np.ndarray) -> Optional[float]:
     return None if len(pos) == 0 else pos.min()
 
 
-def estimate_rt_fov(D) -> torch.Tensor:
+def estimate_rt_fov(D: torch.Tensor) -> torch.Tensor:
     """The smallest positive radius where the radial polynomial of
     radial-tangential ``D`` [N, K] may stop being monotonic (inf where it
     never does): [N, 1] float32 on ``D``'s device. Not differentiable."""
@@ -235,7 +235,7 @@ def _solve_monotonic_fisheye_fov(poly: np.ndarray, dev: torch.device) -> torch.T
     return torch.from_numpy(np.tan(np.asarray(fov)).astype(np.float32)[..., None]).to(dev)
 
 
-def estimate_fisheye_fov(D) -> torch.Tensor:
+def estimate_fisheye_fov(D: torch.Tensor) -> torch.Tensor:
     """tan(theta) at the first point where the fisheye polynomial of ``D``
     (its first 4 coefficients) stops being monotonic, theta capped at pi/2:
     [N, 1] float32 on ``D``'s device. Not differentiable."""
@@ -243,7 +243,7 @@ def estimate_fisheye_fov(D) -> torch.Tensor:
     return _solve_monotonic_fisheye_fov(_odd_poly_derivative(coefs, 4), dev)
 
 
-def estimate_fisheye62_fov(D) -> torch.Tensor:
+def estimate_fisheye62_fov(D: torch.Tensor) -> torch.Tensor:
     """As :func:`estimate_fisheye_fov`, over the six radial coefficients of
     Fisheye62."""
     coefs, dev = _coefs(D)
@@ -292,7 +292,7 @@ def project_points(
     fov: Optional[torch.Tensor] = None,
     lut_vector_field: Optional[torch.Tensor] = None,
     lut_spacing: Optional[torch.Tensor] = None,
-):
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """Project world-space vertices to pixel coordinates.
 
     Args:

@@ -56,6 +56,7 @@ from drtk_tpu_torch.ops.rasterize import (
 )
 from drtk_tpu_torch.ops.row_gather import row_gather
 from drtk_tpu_torch.pipeline import fit_step, inverse8_step, render_textured
+from drtk_tpu_torch.ops import edge_grad as edge_grad_mod
 from drtk_tpu_torch.ops.edge_grad import _stencil_table
 from drtk_tpu_torch.parallel import banded
 from drtk_tpu_torch.pipeline import avatar4k_band, avatar4k_step
@@ -129,6 +130,7 @@ B1_SCENES = list(SCENES)
 BINNING_SCENES = ["span_s", "span_s_plus_1", "tile_borders"]
 NO_LAUNCHES = {
     "B1 rasterize": 0, "B2 gather_rows": 0, "B3 scatter_rows": 0, "B4 window_accum": 0, "B5 rasterize_lines": 0,
+    "E1 edge_grad": 0,
 }
 
 
@@ -1099,8 +1101,9 @@ def test_fit_step_kernels_match_plain(cuda_device):
     tt.reset_kernel_launch_counts()
     loss, grads = fit_step(v, vi, vt, tex, 128, 256)
     torch.cuda.synchronize()
-    assert tt.kernel_launch_counts() == {
-        **NO_LAUNCHES, "B1 rasterize": 1, "B2 gather_rows": 5, "B3 scatter_rows": 3, "B4 window_accum": 1,
+    assert tt.kernel_launch_counts() == {  # edge_grad's backward is one E1 launch, no B2
+        **NO_LAUNCHES, "B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 3, "B4 window_accum": 1,
+        "E1 edge_grad": 1,
     }
     idx = tt.rasterize(v, vi, 128, 256)
     loss, grads = fit_step(v, vi, vt, tex, 128, 256, index_img=idx)
@@ -1175,7 +1178,8 @@ def test_inverse8_step_kernels_match_plain(cuda_device):
     inverse8_step(p, torch.optim.Adam(p, lr=1e-3), s["vi"], s["vt"], cams, img_gt, 64, 64)
     torch.cuda.synchronize()
     assert tt.kernel_launch_counts() == {
-        **NO_LAUNCHES, "B1 rasterize": 1, "B2 gather_rows": 5, "B3 scatter_rows": 2, "B4 window_accum": 1,
+        **NO_LAUNCHES, "B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 2, "B4 window_accum": 1,
+        "E1 edge_grad": 1,
     }
     p_k, p_p = params(), params()
     idx = tt.rasterize(tt.transform(p_k[0].detach().expand(2, -1, -1), **cams), s["vi"], 64, 64)
@@ -1188,6 +1192,99 @@ def test_inverse8_step_kernels_match_plain(cuda_device):
         err = (grads[name] - grads_p[name]).abs().max()
         assert err <= 1e-4 * grads_p[name].abs().max(), name
 
+
+
+def _e1_scene(scene):
+    """E1's inputs on the CPU: the stencil table, an index image, a seeded
+    4-channel image and cotangent, and bary. "grid" has pixel centres on
+    its diagonals; "soup" is a ragged 70 x 130 frame; "batch3" three soups;
+    "background" no face; "one_face" one triangle on background;
+    "clamped" a soup whose index reaches F + 20 (clamped to F - 1)."""
+    make, h, w = {
+        "grid": SCENES["grid"], "soup": SCENES["nonaligned"], "batch3": SCENES["soup_batch3"],
+        "background": SCENES["nonaligned"], "clamped": SCENES["nonaligned"],
+        "one_face": (lambda: {"v": np.float32([[[10.3, 5.2, 4.0], [100.7, 20.1, 5.0], [40.2, 60.6, 6.0]]]),
+                              "vi": np.int32([[0, 1, 2]])}, 70, 130),
+    }[scene]
+    s = make()
+    v = torch.from_numpy(s["v"])
+    vi = broadcast_vi(torch.from_numpy(s["vi"]), v.shape[0])
+    idx = tt.rasterize(v, vi, h, w)
+    _, bary = tt.render(v, vi, idx)
+    if scene == "background":
+        idx = torch.full_like(idx, -1)
+    if scene == "clamped":
+        idx = torch.where(idx % 5 == 1, idx + vi.shape[1] + 20, idx)
+    gen = torch.Generator().manual_seed(3)
+    img = torch.rand((v.shape[0], 4, h, w), generator=gen)
+    g = torch.randn((v.shape[0], 4, h, w), generator=gen)
+    return _stencil_table(v, vi), idx, img, g, bary
+
+
+E1_SCENES = ["grid", "soup", "batch3", "background", "one_face", "clamped"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["rows", "image"])
+@pytest.mark.parametrize("max_dp_dr", [1e4, 0.0])
+@pytest.mark.parametrize("viewport", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("scene", E1_SCENES)
+def test_edge_grad_kernel_matches_plain(cuda_device, scene, dtype, viewport, max_dp_dr, mode):
+    """E1 against its plain version on the card: the same nonzero pixels,
+    values within 1e-5 (f32) or 1e-12 (f64) of the largest magnitude. The
+    viewport is the frame's last 24 rows and a background halo row, as the
+    banded path passes its last band (strided slices of the padded frame,
+    stencil centres on the frame's last row dropped)."""
+    table, idx, img, g, bary = (t.to(cuda_device) for t in _e1_scene(scene))
+    table, img, g, bary = (t.to(dtype) for t in (table, img, g, bary))
+    y0, frame_h = 0, -1
+    if viewport:
+        h = idx.shape[1]
+        y0, frame_h = h - 24, h
+        img, g, bary, idx = banded._pad_frame(img, g, bary, idx)
+        idx, img, g, bary = idx[:, y0:], img[:, :, y0:], g[:, :, y0:], bary[:, :, y0:]
+    args = (table, idx, img, g, bary if mode == "rows" else None, max_dp_dr, y0, frame_h)
+    before = tt.kernel_launch_counts()["E1 edge_grad"]
+    got = edge_grad_mod.edge_grad_stencil(*args)
+    assert tt.kernel_launch_counts()["E1 edge_grad"] == before + 1
+    want = edge_grad_mod.edge_grad_stencil(*args, impl="plain")
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    nonzero = (lambda t: (t != 0).any(1)) if mode == "image" else (lambda t: (t != 0).any(-1))
+    assert torch.equal(nonzero(got), nonzero(want))
+    limit = 1e-12 if dtype == torch.float64 else 1e-5
+    assert (got - want).abs().max() <= limit * want.abs().max()
+    if scene not in ("background",):
+        assert bool((want != 0).any())
+
+
+@pytest.mark.cuda
+def test_edge_grad_kernel_has_no_fallback(cuda_device, monkeypatch):
+    """A CUDA tensor never takes the plain stencil: when the build fails,
+    the backward raises."""
+
+    def failed_build(*args, **kwargs):
+        raise RuntimeError("nvcc failed for csrc/edge_grad.cu")
+
+    table, idx, img, g, bary = (t.to(cuda_device) for t in _e1_scene("soup"))
+    monkeypatch.setattr(edge_grad_mod._build, "entry", failed_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        edge_grad_mod.edge_grad_stencil(table, idx, img, g, bary, 1e4)
+
+
+@pytest.mark.cuda
+def test_edge_grad_kernel_raises_past_32_bit_offsets(cuda_device):
+    """Rows of 9 values for 2**28 pixels pass 2**31 within a batch: refused
+    before anything is allocated or launched."""
+    table = torch.zeros((1, 4, 16), device=cuda_device)
+    big_idx = torch.zeros((), dtype=torch.int32, device=cuda_device).expand(1, 2**14, 2**14)
+    big = torch.zeros((), device=cuda_device).expand(1, 1, 2**14, 2**14)
+    with pytest.raises(ValueError, match="32-bit"):
+        edge_grad_mod.edge_grad_stencil(table, big_idx, big, big, big.expand(1, 3, -1, -1), 1e4)
+    small = torch.zeros((2**16, 1, 2, 2), device=cuda_device)
+    with pytest.raises(ValueError, match="65535"):
+        edge_grad_mod.edge_grad_stencil(table.expand(2**16, -1, -1), small[:, 0].int(), small, small, None, 1e4)
 
 def test_window_accumulate_refuses_2_31_taps():
     """B4's tap offsets are 32-bit: the wrapper refuses 2**31 taps per batch
@@ -1306,7 +1403,8 @@ def test_avatar4k_step_on_the_card_matches_cpu(cuda_device):
         if dev == "cuda":
             torch.cuda.synchronize()
             assert tt.kernel_launch_counts() == {
-                **NO_LAUNCHES, "B1 rasterize": 8, "B2 gather_rows": 28, "B3 scatter_rows": 8, "B4 window_accum": 4,
+                **NO_LAUNCHES, "B1 rasterize": 8, "B2 gather_rows": 24, "B3 scatter_rows": 8, "B4 window_accum": 4,
+                "E1 edge_grad": 4,
             }
     (loss_c, grads_c), (loss_k, grads_k) = out["cpu"], out["cuda"]
     torch.testing.assert_close(loss_k.cpu(), loss_c, rtol=1e-5, atol=0)
