@@ -23,7 +23,8 @@ checked just after:
   backward, mipmapped shading from a 3x512^2..3x64^2 pyramid, an MSI
   background on 256^2 rays), the training step (gradients to the vertices,
   the pyramid and the MSI texture, an Adam update), with B1 under the
-  viewport, B2, B3 (the banded edge_grad's rows) and B4 (the mipmap
+  viewport, B2, E1 (the banded edge_grad backward's band 0), B3 (that
+  band's bary x g rows, from the plain stencil) and B4 (the mipmap
   backward's taps) held against their plain versions on the step's own
   band-0 inputs, the bands against the full frame and the band recompute
   against none;
@@ -49,7 +50,8 @@ checked just after:
   cards, else Gloo with every rank on this card), meshes (1, 4), (2, 2)
   with 2 cameras and (1, 2) over two of the ranks, an Adam step on v, vt
   and tex; each rank's launches (B1-B4), its gathered frame against one
-  process's bit for bit and its gradients against ``fit_step``'s.
+  process's bit for bit, its gradients against ``fit_step``'s and its E1
+  launch against the plain version.
 
 The face-row gather (B2), the pixel-to-face accumulation (B3) and the
 texture-gradient scatter (B4) are held against their plain versions on the
@@ -61,12 +63,17 @@ the views of the inverse8 step; wireframe rasterization (B5), bit for bit,
 on the entry, textured and inverse8 scenes and on a scene of edges within
 ulps of the diamonds' reach (``near_miss_scene``), with the edge tests its
 rejects leave (modeled from the packed rows); and row-tile viewports of B1
-and B5 against the full frame; and edge_grad's backward stencil (E1), in
-rows and image mode at max_dp_dr 1e4 and 0, on the fitting step's own
-inputs, the inverse8 step's, the avatar4k step's band 0 with its halo row
-and the near-miss scene (one input also in float64), its nonzero pixels
-equal to the plain version's and its values within 1e-5 (float64: 1e-12)
-of their largest magnitude. Times come from CUDA events: a kernel's ``ms`` (and
+and B5 against the full frame; and the edge_grad backward (E1), in verts
+mode (index image to vertex gradient) and image mode at max_dp_dr 1e4 and
+0, on the launch arguments each path makes: the fitting step, the
+inverse8 step and its two lens steps, the mipmapped views, the avatar4k
+step's band 0 with its halo row, each row-sharded rank (verts mode), the
+entry scene (where atomics meet) and the near-miss scene (one input also
+in float64), its nonzero vertices (pixels) equal to the plain version's
+and its values within 1e-5 (float64: 1e-12) of their largest magnitude;
+the edge_grad backward alone, full frame and banded, under torch.profiler:
+E1 and the output's zeros, no B3, no ``index_add_``. Each path's peak
+device memory is printed. Times come from CUDA events: a kernel's ``ms`` (and
 ``plain_ms``, ``library_ms``) from back-to-back calls, which count the
 host's time per call when it is the longer; ``device_ms`` (and
 ``library_device_ms``) from replays of a CUDA graph of 20 calls, the time
@@ -129,7 +136,7 @@ GS_HW, GS_CALLS = 512, 10  # grid_scatter's output texture; timed calls of grid_
 # jittered cameras, and a (1, 2) mesh over ranks 0-1; 3 warm-up steps, 10 timed.
 SHARDED_RANKS, SHARDED_MESHES = 4, (("(1, 4)", 4, 1), ("(2, 2)", 4, 2), ("(1, 2) of 4", 2, 1))
 SHARDED_WARMUP, SHARDED_STEPS = 3, 10
-SHARDED_PER_STEP = {"B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 3, "B4 window_accum": 1,
+SHARDED_PER_STEP = {"B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 2, "B4 window_accum": 1,
                     "B5 rasterize_lines": 0, "E1 edge_grad": 1}
 
 
@@ -447,6 +454,7 @@ def sharded_rank(rank: int, world: int, store: str, backend: str, outdir: str) -
     import torch.distributed as dist
 
     import drtk_tpu_torch as tt
+    from drtk_tpu_torch.ops import edge_grad as edge_grad_mod
     from drtk_tpu_torch.ops.math import next_rank_rows
     from drtk_tpu_torch.parallel import multihost, sharding, spmd
     from drtk_tpu_torch.pipeline import fit_step, render_textured
@@ -470,12 +478,32 @@ def sharded_rank(rank: int, world: int, store: str, backend: str, outdir: str) -
             fwd = spmd.make_row_sharded_forward(mesh, s["vi"], H, W)
             torch.cuda.synchronize()
             tt.reset_kernel_launch_counts()
-            block = fwd(*leaves)
-            grads = torch.autograd.grad((block * w_block).sum(), leaves)
+            e1_args, e1_launch = [], edge_grad_mod._e1_cuda
+
+            def e1_spy(*args, **kwargs):
+                e1_args.append(args)
+                return e1_launch(*args, **kwargs)
+
+            edge_grad_mod._e1_cuda = e1_spy
+            try:
+                block = fwd(*leaves)
+                grads = torch.autograd.grad((block * w_block).sum(), leaves)
+            finally:
+                edge_grad_mod._e1_cuda = e1_launch
             torch.cuda.synchronize()
             check_launches = tt.kernel_launch_counts()
             if check_launches != SHARDED_PER_STEP:
                 raise AssertionError(f"rank {rank} {label}: launches {check_launches}, expected {SHARDED_PER_STEP}")
+            # E1 on the rank's own launch (its block and the halo row)
+            # against the plain version.
+            e1_got = edge_grad_mod._e1_cuda(*e1_args[0])
+            e1_want = edge_grad_mod._verts_plain(*e1_args[0])
+            e1_check = {"rel_err": rel_err(e1_got, e1_want), "nonzero_equal": bool(torch.equal(e1_got != 0,
+                                                                                                e1_want != 0)),
+                        "nonzero": int((e1_want != 0).sum()), "rows": int(e1_args[0][2].shape[1])}
+            if not (e1_check["nonzero_equal"] and e1_check["rel_err"] <= 1e-5):
+                raise AssertionError(f"rank {rank} {label}: E1 against its plain version {e1_check}")
+            del e1_args, e1_got, e1_want
             frame = spmd.gather_frame(block, mesh)
             with torch.no_grad():
                 img_ref, _ = render_textured(s["v"], s["vi"], s["vt"], s["tex"], H, W)
@@ -532,7 +560,7 @@ def sharded_rank(rank: int, world: int, store: str, backend: str, outdir: str) -
             row_bytes = nb * W * 4 * (3 + 3 + 3 + 1)  # img, cotangent, bary rows; the index row
             rec = {
                 "mesh": label, "rank": rank, "coord": [d, j], "batch": batch, "cameras": nb, "rows": hb,
-                "device": str(dev), "launches_check": check_launches, "launches": launches,
+                "device": str(dev), "launches_check": check_launches, "launches": launches, "e1_vs_plain": e1_check,
                 "grad_rel_err_vs_one_process": grad_err, "frame_bit_equal": True,
                 "halo_bytes_sent_per_step": row_bytes if j > 0 else 0,
                 "halo_bytes_received_per_step": row_bytes if j < pix - 1 else 0,
@@ -559,7 +587,7 @@ def row_sharded_phase() -> dict:
     SHARDED_MESHES, an Adam step on v, vt and tex. NCCL with a card per rank
     where there are that many cards; else Gloo, every rank on this card
     (their step times share its time: not a scaling figure). Emits a record
-    per mesh; returns rank 0's kernel launches on the first mesh."""
+    per mesh; returns rank 0's record on the first mesh."""
     import torch.multiprocessing as mp
 
     t_phase = time.perf_counter()
@@ -581,13 +609,14 @@ def row_sharded_phase() -> dict:
             "warmup_steps": SHARDED_WARMUP, "steps_timed": SHARDED_STEPS, "per_rank": recs,
             "step_ms_median_max_over_ranks": max(r["step_ms_median"] for r in recs),
             "grad_rel_err_max": max(max(r["grad_rel_err_vs_one_process"].values()) for r in recs),
+            "e1_rel_err_vs_plain_max": max(r["e1_vs_plain"]["rel_err"] for r in recs),
             "halo_bytes_per_step": sum(r["halo_bytes_sent_per_step"] for r in recs),
             **{f"{k}_max_over_ranks": max((r[k] for r in recs if r[k] is not None), default=None)
                for k in ("all_reduce_ms_per_step", "halo_ms_per_step", "device_busy_ms_per_step", "peak_mem_bytes")},
         })
     emit({"phase": "row-sharded checks", "backend": backend, "frames_bit_equal": True,
           "phase_seconds": time.perf_counter() - t_phase})
-    return sharded[SHARDED_MESHES[0][0]][0]["launches"]
+    return sharded[SHARDED_MESHES[0][0]][0]
 
 
 def main() -> int:
@@ -788,6 +817,7 @@ def main() -> int:
         "index_agree_share": agree.float().mean().item(), "max_abs_img_err_vs_plain": img_err,
         "max_abs_bary_err_vs_render_ref": bary_err, "profile": profile,
     })
+    peaks = {"forward": peak}
 
     # 6. B3 vs plain: rows from a seeded generator on the textured scene's
     # index image (and, after phase 13, on the inverse8 step's), with the
@@ -907,78 +937,156 @@ def main() -> int:
     b4 = b4_vs_plain("textured", v, vi, vt, tex, index_img)
 
     # E1 vs plain, on the arguments of the launches a path makes (captured by
-    # a stand-in for edge_grad._stencil_cuda): rows mode as the backward
-    # calls it and image mode (edge_grad_image's), each at max_dp_dr 1e4 and
-    # 0; the textured input also in float64. The nonzero pixels must be the
-    # plain version's and the values within 1e-5 (f64: 1e-12) of the largest
-    # magnitude. Bound: per pixel the index (4 B), img and the cotangent (C
-    # values each), and bary (3) and the rows (9), or the image gradient (3),
-    # read or written once, and the table once.
+    # a stand-in for edge_grad._e1_cuda): verts mode as the backward calls it
+    # and image mode (edge_grad_image's) on the same inputs, each at
+    # max_dp_dr 1e4 and 0; the textured input also in float64. Each must be
+    # within 1e-5 (f64: 1e-12) of the plain version's largest magnitude,
+    # and image mode must give its nonzero pixels (verts mode's nonzero
+    # vertices are printed: a sum may cancel to 0 in one order). Bound,
+    # the bytes the function must move with this run's data: the index once
+    # (4 B a pixel) and the output once (verts: [N, V, 3]; image: [N, 3, H,
+    # W]); img and the cotangent (C values each) and, in verts mode, bary
+    # (3) at the pixels that receive a nonzero part (each is an end of a
+    # contributing stencil leg, so reading them is the least the image reads
+    # can be); the vertex ids and corners of the faces of those pixels.
     def capture_e1(fn) -> list:
-        captured, launch = [], edge_grad_mod._stencil_cuda
+        captured, launch = [], edge_grad_mod._e1_cuda
 
-        def e1_spy(*args):
+        def e1_spy(*args, **kwargs):
             captured.append(args)
-            return launch(*args)
+            return launch(*args, **kwargs)
 
-        edge_grad_mod._stencil_cuda = e1_spy
+        edge_grad_mod._e1_cuda = e1_spy
         try:
             fn()
         finally:
-            edge_grad_mod._stencil_cuda = launch
+            edge_grad_mod._e1_cuda = launch
         return captured
 
+    def e1_plain(args):
+        v_pix, svi, idx, img, g, bary = args[:6]
+        if bary is not None:
+            return edge_grad_mod._verts_plain(*args[:9])
+        return edge_grad_mod._stencil_plain(_stencil_table(v_pix, svi), idx, img, g, None, *args[6:9])
+
+    def e1_parts(args) -> torch.Tensor:
+        """The pixels that receive a nonzero part (the plain image mode's
+        nonzero foreground pixels), [N, H, W] bool."""
+        v_pix, svi, idx, img, g = args[:5]
+        image = edge_grad_mod._stencil_plain(_stencil_table(v_pix, svi), idx, img, g, None, *args[6:9])
+        return (image != 0).any(1) & (idx >= 0)
+
+    def e1_bound(args) -> tuple[int, float, float]:
+        """(bytes, bound ms, parts' pixels) of E1 on these arguments."""
+        v_pix, svi, idx, img, g, bary = args[:6]
+        n, c, h, w = img.shape
+        es = v_pix.element_size()
+        parts = e1_parts(args)
+        n_parts = int(parts.sum())
+        faces = int(torch.unique(idx[parts].long().clamp(max=svi.shape[1] - 1)
+                                 + torch.nonzero(parts)[:, :1].squeeze(1) * svi.shape[1]).numel())
+        out_bytes = v_pix.shape[0] * v_pix.shape[1] * 3 * es if bary is not None else n * 3 * h * w * es
+        nbytes = (n * h * w * 4 + out_bytes + n_parts * (2 * c + (3 if bary is not None else 0)) * es
+                  + faces * (12 + 9 * es))
+        return nbytes, nbytes / bw * 1e3, n_parts
+
     def e1_record(args, timed: bool) -> dict:
-        table, idx, img, g, bary = args[:5]
-        got = edge_grad_mod._stencil_cuda(*args)
-        want = edge_grad_mod._stencil_plain(*args)
+        v_pix, bary = args[0], args[5]
+        got = edge_grad_mod._e1_cuda(*args[:9])
+        want = e1_plain(args)
         torch.cuda.synchronize()
-        nonzero = (lambda t: (t != 0).any(1)) if bary is None else (lambda t: (t != 0).any(-1))
+        nonzero = (lambda t: t != 0) if bary is not None else (lambda t: (t != 0).any(1))
         nz_got, nz_want = nonzero(got), nonzero(want)
         rec = {"max_abs_err": (got - want).abs().max().item(), "rel_err": rel_err(got, want),
-               "nonzero_pixels": int(nz_want.sum()), "nonzero_equal": bool(torch.equal(nz_got, nz_want))}
-        limit = 1e-12 if table.dtype == torch.float64 else 1e-5
-        if not (rec["nonzero_equal"] and rec["rel_err"] <= limit):
+               "nonzero": int(nz_want.sum()), "nonzero_equal": bool(torch.equal(nz_got, nz_want)),
+               "nonzero_mismatch": int((nz_got != nz_want).sum())}
+        limit = 1e-12 if v_pix.dtype == torch.float64 else 1e-5
+        # Image mode: the classes decide which pixels are nonzero, so they must
+        # match. Verts mode: a vertex's sum may cancel to exactly 0 in one
+        # order of the additions and not in the other; the limit bounds it.
+        if not ((rec["nonzero_equal"] or bary is not None) and rec["rel_err"] <= limit and bool(nz_want.any())):
             raise AssertionError(f"E1 {[tuple(a.shape) if torch.is_tensor(a) else a for a in args]}: {rec}, "
                                  f"limit {limit}")
         if timed:
-            n, c, h, w = img.shape
-            es = table.element_size()
-            per_pixel = 4 + 2 * c * es + (12 * es if bary is not None else 3 * es)
-            nbytes = n * h * w * per_pixel + table.numel() * es
+            nbytes, bound_ms, n_parts = e1_bound(args)
             rec.update({
-                "ms": cuda_ms(lambda: edge_grad_mod._stencil_cuda(*args), 50),
-                "device_ms": graph_ms(lambda: edge_grad_mod._stencil_cuda(*args)),
-                "plain_ms": cuda_ms(lambda: edge_grad_mod._stencil_plain(*args), 10),
-                "bytes": nbytes, "bound_ms": nbytes / bw * 1e3, "bound_by": "bytes", "library_ms": None,
+                "ms": cuda_ms(lambda: edge_grad_mod._e1_cuda(*args[:9]), 50),
+                "device_ms": graph_ms(lambda: edge_grad_mod._e1_cuda(*args[:9])),
+                "plain_ms": cuda_ms(lambda: e1_plain(args), 10),
+                "bytes": nbytes, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+                "part_pixels": n_parts,
             })
+            if bary is not None:  # E1 alone, adding into one accumulator: without the output's zeros
+                acc = torch.zeros_like(got)
+                rec["kernel_device_ms"] = graph_ms(lambda: edge_grad_mod._e1_cuda(*args[:9], out=acc))
         return rec
 
-    def e1_vs_plain(label, args, f64=False) -> dict:
-        """E1 against its plain version on one launch's arguments (table,
+    def e1_vs_plain(label, args, f64=False, timed=True) -> dict:
+        """E1 against its plain version on one launch's arguments (v_pix, vi,
         index, img, cotangent, bary, max_dp_dr, y_offset, full_height)."""
-        table, idx, img, g, bary, _, y0, frame_h = args
+        v_pix, svi, idx, img, g, bary, _, y0, frame_h = args[:9]
         recs = {}
-        for mode in ("rows", "image"):
+        for mode in ("verts", "image"):
             for m in (1e4, 0.0):
                 recs[f"{mode} max_dp_dr={m:g}"] = e1_record(
-                    (table, idx, img, g, bary if mode == "rows" else None, m, y0, frame_h), timed=m > 0)
+                    (v_pix, svi, idx, img, g, bary if mode == "verts" else None, m, y0, frame_h), timed and m > 0)
         if f64:
-            recs["rows max_dp_dr=10000 float64"] = e1_record(
-                (table.double(), idx, img.double(), g.double(), bary.double(), 1e4, y0, frame_h), timed=True)
+            recs["verts max_dp_dr=10000 float64"] = e1_record(
+                (v_pix.double(), svi, idx, img.double(), g.double(), bary.double(), 1e4, y0, frame_h), timed=True)
         n, c, h, w = img.shape
         emit({"phase": "E1 vs plain", "input": label, "batch": n, "channels": c, "H": h, "W": w,
-              "faces": int(table.shape[1]), "y_offset": y0, "full_height": frame_h,
+              "vertices": int(v_pix.shape[1]), "faces": int(svi.shape[1]), "y_offset": y0, "full_height": frame_h,
               "discontinuity_pixels": int(((idx[:, :-1, :-1] != idx[:, :-1, 1:])
                                            | (idx[:, :-1, :-1] != idx[:, 1:, :-1])).sum()), **recs})
         return recs
 
+    def e1_contention(args) -> dict:
+        """The atomics E1's verts mode makes on these arguments, modeled:
+        9 per pixel that receives a part (fewer where a value is 0), and how
+        many of a warp's 32 pixels (a tile row) send to one face."""
+        svi, idx = args[1], args[2]
+        _, h, w = idx.shape
+        parts = e1_parts(args)
+        at = torch.nonzero(parts)
+        f_cnt = svi.shape[1]
+        warp = (at[:, 0] * h + at[:, 1]) * ((w + 31) // 32) + at[:, 2] // 32
+        _, lanes = torch.unique(warp * f_cnt + idx[parts].long().clamp(max=f_cnt - 1), return_counts=True)
+        return {"part_pixels": int(parts.sum()), "modeled_atomics_at_most": 9 * int(parts.sum()),
+                "same_face_lanes_max": int(lanes.max()), "same_face_lanes_mean": lanes.float().mean().item()}
+
+    def backward_launches(label, fn, e1_launches) -> dict:
+        """``fn`` (an edge_grad backward on CUDA tensors) under torch.profiler:
+        it must launch E1 ``e1_launches`` times and no other kernel of the
+        port, call no ``index_add_``, and run no device operation but those
+        launches and the output's zeros."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tt.reset_kernel_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        launches = tt.kernel_launch_counts()
+        cpu_ops = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CPU})
+        device_ops = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        rec = {"phase": "edge_grad backward", "path": label, "launches": launches, "device_ops": device_ops,
+               "index_add_called": "aten::index_add_" in cpu_ops, "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        if (launches != {**{k: 0 for k in launches}, "E1 edge_grad": e1_launches} or rec["index_add_called"]
+                or (device_ops and len(device_ops) != e1_launches + 1)):
+            raise AssertionError(f"edge_grad backward {label}: {rec}, expected E1 {e1_launches} times, no other "
+                                 "kernel of the port, no index_add_, and besides E1 only the output's zeros")
+        emit(rec)
+        return rec
+
     # 8. The main path of this slice: the fitting step at full size, with
     # gradients to v, vt and tex, then bench_textured's v-only gradient.
     expected = {
-        ("v", "vt", "tex"): {"B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 3, "B4 window_accum": 1,
+        ("v", "vt", "tex"): {"B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 2, "B4 window_accum": 1,
                              "B5 rasterize_lines": 0, "E1 edge_grad": 1},
-        ("v",): {"B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 2, "B4 window_accum": 0,
+        ("v",): {"B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 1, "B4 window_accum": 0,
                  "B5 rasterize_lines": 0, "E1 edge_grad": 1},
     }
     fit = {}
@@ -1038,9 +1146,32 @@ def main() -> int:
     fit[("v", "vt", "tex")].update({"loss_rel_err_vs_plain": loss_err, "grad_rel_err_vs_plain": grad_err})
     for rec in fit.values():
         emit(rec)
+    peaks.update({f"fit step {'+'.join(wrt)}": r["peak_mem_bytes"] for wrt, r in fit.items()})
     (e1_args,) = capture_e1(lambda: fit_step(v, vi, vt, tex, H, W, index_img=idx_k))
     e1 = {"textured": e1_vs_plain("textured fitting step", e1_args, f64=True)}
-    del e1_args
+
+    # ...the step's edge_grad backward alone: one E1 launch and the output's
+    # zeros, no B3, no index_add_.
+    def fit_edge_grad_backward(a=e1_args):
+        vv = a[0].detach().requires_grad_()
+        return torch.autograd.grad(tt.edge_grad_estimator(vv, a[1], a[5], a[3], a[2]), vv, a[4])
+
+    eg_bwd = {"fit_step": backward_launches("fitting step, full frame", fit_edge_grad_backward, 1)}
+    del e1_args, fit_edge_grad_backward  # its default holds the step's image, cotangent and bary
+
+    # ...and E1 where atomics meet: the entry scene (128 large triangles at
+    # 256^2), where along a silhouette the lanes of a warp add into the same
+    # face's 9 addresses; the modeled same-face lanes per warp.
+    ent_v, ent_vi = entry[0], rast.broadcast_vi(entry[1], 1)
+    with torch.no_grad():
+        ent_idx = tt.rasterize(ent_v, ent_vi, ENTRY_HW, ENTRY_HW)
+        _, ent_bary = tt.render(ent_v, ent_vi, ent_idx)
+    ent_args = (ent_v, ent_vi, ent_idx, torch.rand((1, 3, ENTRY_HW, ENTRY_HW), generator=gen, device=dev),
+                torch.randn((1, 3, ENTRY_HW, ENTRY_HW), generator=gen, device=dev), ent_bary, 1e4, 0, -1)
+    e1["entry"] = e1_vs_plain("entry", ent_args)
+    emit({"phase": "E1 contention", "input": "entry", **e1_contention(ent_args),
+          "device_ms": e1["entry"]["verts max_dp_dr=10000"]["kernel_device_ms"],
+          "bound_ms": e1["entry"]["verts max_dp_dr=10000"]["bound_ms"]})
 
     # 10. B5 vs plain, every edge visible: the entry scene (canvas-sized
     # triangles), the textured scene, the inverse8 views through transform,
@@ -1130,12 +1261,14 @@ def main() -> int:
     # 12. The wireframe path: every inverse8 view, transform then
     # rasterize(wireframe=True), through the public entry points.
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     tt.reset_kernel_launch_counts()
     with torch.no_grad():
         wire_idx = tt.rasterize(tt.transform(inv["v_world"].expand(INV_VIEWS, -1, -1), **cams), inv_vi_wire,
                                 INV_HW, INV_HW, wireframe=True)
     torch.cuda.synchronize()
     wire_launches = tt.kernel_launch_counts()
+    peaks["wireframe path"] = torch.cuda.max_memory_allocated()
     if wire_launches != {**{k: 0 for k in wire_launches}, "B5 rasterize_lines": 1}:
         raise AssertionError(f"wireframe path: launches {wire_launches}, expected B5 once")
     if wire_idx.shape != (INV_VIEWS, INV_HW, INV_HW) or not bool((wire_idx >= 0).flatten(1).any(1).all()):
@@ -1144,7 +1277,7 @@ def main() -> int:
         wire_ms = cuda_ms(lambda: tt.rasterize(tt.transform(inv["v_world"].expand(INV_VIEWS, -1, -1), **cams),
                                                inv_vi_wire, INV_HW, INV_HW, wireframe=True), 20)
     emit({"phase": "wireframe path", "config": "inverse8", "views": INV_VIEWS, "H": INV_HW, "W": INV_HW,
-          "launches": wire_launches, "ms": wire_ms, "indexed_share": (wire_idx >= 0).float().mean().item()})
+          "launches": wire_launches, "ms": wire_ms, "peak_mem_bytes": peaks["wireframe path"], "indexed_share": (wire_idx >= 0).float().mean().item()})
 
     # 13. The main path of this slice: the inverse8 training step at full
     # size (8 views of 512^2, 12,800 triangles, a 3x256x256 texture, Adam
@@ -1153,12 +1286,13 @@ def main() -> int:
     # the same cameras; then held against the plain pipeline on the kernel's
     # index image, each side from a copy of the current parameters with an
     # optimizer of its own. Phase 16 runs it through lenses.
-    inv_per_step = {"B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 2, "B4 window_accum": 1,
+    inv_per_step = {"B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 1, "B4 window_accum": 1,
                     "B5 rasterize_lines": 0, "E1 edge_grad": 1}
 
-    def multiview_step(label, step_cams, steps) -> tuple[dict, torch.Tensor, torch.Tensor]:
+    def multiview_step(label, step_cams, steps, e1_timed=False) -> tuple[dict, torch.Tensor, torch.Tensor]:
         """The step's record, and the current vertices in pixel space and
-        their index image (the kernel's)."""
+        their index image (the kernel's); E1 held against its plain version
+        on the step's own launch (``e1[label]``)."""
         t_phase = time.perf_counter()
         with torch.no_grad():
             gt, _ = render_multiview(inv["v_world"], inv["vi"], inv["vt"], inv["tex_gt"], step_cams, INV_HW, INV_HW)
@@ -1181,7 +1315,7 @@ def main() -> int:
         if launches != {k: c * (WARMUP + steps) for k, c in inv_per_step.items()}:
             raise AssertionError(f"{label}: launches {launches} over {WARMUP + steps} steps, expected {inv_per_step} "
                                  "per step")
-        peak = torch.cuda.max_memory_allocated()
+        peak = peaks[label] = torch.cuda.max_memory_allocated()
         losses = [x.item() for x in losses]
         if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
             raise AssertionError(f"{label}: the loss went from {losses[0]} to {losses[-1]}")
@@ -1199,7 +1333,13 @@ def main() -> int:
         side = {}
         for impl in ("auto", "plain"):
             p = tuple(t.detach().clone().requires_grad_() for t in params)
-            side[impl] = inverse8_step(p, torch.optim.Adam(p, lr=1e-3), *args, index_img=idx, impl=impl)
+            e1_args = capture_e1(lambda p=p, impl=impl: side.update({impl: inverse8_step(
+                p, torch.optim.Adam(p, lr=1e-3), *args, index_img=idx, impl=impl)}))
+            if len(e1_args) != (impl == "auto"):
+                raise AssertionError(f"{label}: {len(e1_args)} E1 launches with impl={impl!r}")
+            if e1_args:
+                e1[label] = e1_vs_plain(label, e1_args[0], timed=e1_timed)
+        del e1_args
         (loss_k, grads_k), (loss_p, grads_p) = side["auto"], side["plain"]
         loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
         grad_err = {leaf: rel_err(grads_k[leaf], grads_p[leaf]) for leaf in ("v_world", "tex")}
@@ -1227,14 +1367,8 @@ def main() -> int:
         emit(rec)
         return rec, v_pix, idx
 
-    inv_rec, inv_v_pix, idx_k = multiview_step("inverse8 step", cams, STEPS)
+    inv_rec, inv_v_pix, idx_k = multiview_step("inverse8 step", cams, STEPS, e1_timed=True)
     inv_launches = inv_rec["launches"]
-    with torch.no_grad():
-        inv_gt, _ = render_multiview(inv["v_world"], inv["vi"], inv["vt"], inv["tex_gt"], cams, INV_HW, INV_HW)
-    inv_p = ((inv["v_world"] + 0.02).requires_grad_(), torch.full_like(inv["tex_gt"], 0.5).requires_grad_())
-    (e1_args,) = capture_e1(lambda: inverse8_step(inv_p, torch.optim.Adam(inv_p, lr=1e-3), inv["vi"], inv["vt"], cams,
-                                                  inv_gt, INV_HW, INV_HW))
-    e1["inverse8"] = e1_vs_plain("inverse8 step", e1_args)
     # ...and the near-miss scene (edges at a pixel diamond's reach, to within
     # ulps), a seeded image and cotangent of 4 channels.
     nm_v = torch.from_numpy(near["v"]).to(dev)
@@ -1244,8 +1378,7 @@ def main() -> int:
         _, nm_bary = tt.render(nm_v, nm_vi, nm_idx)
     nm_img = torch.rand((1, 4, 64, 128), generator=gen, device=dev)
     nm_g = torch.randn((1, 4, 64, 128), generator=gen, device=dev)
-    e1["near_miss"] = e1_vs_plain("near_miss", (_stencil_table(nm_v, nm_vi), nm_idx, nm_img, nm_g, nm_bary, 1e4, 0, -1))
-    del e1_args, inv_p, inv_gt
+    e1["near_miss"] = e1_vs_plain("near_miss", (nm_v, nm_vi, nm_idx, nm_img, nm_g, nm_bary, 1e4, 0, -1))
     # ...its B1 launch held against the plain rasterizer on the same views
     # (8 x 512^2, 12,800 triangles each).
     b1["inverse8"] = b1_vs_plain("inverse8", inv_v_pix, inv["vi"], INV_HW, INV_HW)
@@ -1288,7 +1421,7 @@ def main() -> int:
     t_phase = time.perf_counter()
     mv_levels = [torch.from_numpy(x).to(dev) for x in box_pyramid(inv["tex_gt"].cpu().numpy(), 4)]
     mv_w = torch.randn((INV_VIEWS, 4, INV_HW, INV_HW), generator=gen, device=dev)
-    mv_per_call = {"B1 rasterize": 1, "B2 gather_rows": 6, "B3 scatter_rows": 2, "B4 window_accum": 1,
+    mv_per_call = {"B1 rasterize": 1, "B2 gather_rows": 6, "B3 scatter_rows": 1, "B4 window_accum": 1,
                    "B5 rasterize_lines": 0, "E1 edge_grad": 1}
 
     def mipmap_views(impl="auto", index_img=None, ev=None):
@@ -1318,7 +1451,7 @@ def main() -> int:
     mv_launches = tt.kernel_launch_counts()
     if mv_launches != {k: c * (MV_WARMUP + MV_CALLS) for k, c in mv_per_call.items()}:
         raise AssertionError(f"mipmap views: launches {mv_launches}, expected {mv_per_call} per call")
-    mv_peak = torch.cuda.max_memory_allocated()
+    mv_peak = peaks["mipmap views"] = torch.cuda.max_memory_allocated()
     mv_fwd = [e[0].elapsed_time(e[1]) for e in mv_events[MV_WARMUP:]]
     mv_all = [e[0].elapsed_time(e[2]) for e in mv_events[MV_WARMUP:]]
     if mv_img.shape != (INV_VIEWS, 4, INV_HW, INV_HW) or not all(bool(torch.isfinite(x).all())
@@ -1327,7 +1460,11 @@ def main() -> int:
     mv_profile = device_profile(lambda: mipmap_views(), PROFILED_STEPS)
     # ...held against the plain pipeline on the kernel's index image, and B2
     # against its plain version on the uv derivative's tables.
-    mv_side = {impl: mipmap_views(impl, mv_idx) for impl in ("auto", "plain")}
+    mv_side = {}
+    (mv_e1,) = capture_e1(lambda: mv_side.update(auto=mipmap_views("auto", mv_idx)))
+    mv_side["plain"] = mipmap_views("plain", mv_idx)
+    e1["mipmap views"] = e1_vs_plain("mipmap views", mv_e1, timed=False)
+    del mv_e1
     mv_loss_err = rel_err(mv_side["auto"][1], mv_side["plain"][1])
     mv_grad_err = {name: rel_err(a, b) for name, a, b in zip(
         ["v_world"] + [f"levels[{i}]" for i in range(len(mv_levels))], mv_side["auto"][2], mv_side["plain"][2])}
@@ -1385,7 +1522,7 @@ def main() -> int:
         launches = tt.kernel_launch_counts()
         if launches != {**{k: 0 for k in launches}, "B4 window_accum": 2 * (GS_CALLS + 2)}:
             raise AssertionError(f"grid_scatter {mode}: launches {launches}, expected B4 once per forward")
-        peak = torch.cuda.max_memory_allocated()
+        peak = peaks[f"grid_scatter {mode}"] = torch.cuda.max_memory_allocated()
         profile = device_profile(gs_step, PROFILED_STEPS)
         captured, launch = [], window_accum._window_accumulate_cuda
 
@@ -1454,7 +1591,7 @@ def main() -> int:
         f_launches = tt.kernel_launch_counts()
         if any(f_launches.values()):
             raise AssertionError(f"filter2d: launches {f_launches}, expected none")
-        f_peak = torch.cuda.max_memory_allocated()
+        f_peak = peaks["filter2d"] = torch.cuda.max_memory_allocated()
         f_profile = device_profile(filter_step, PROFILED_STEPS)
         outs = filter_chain(f_in)
         refs = filter_chain(f_in.double(), filter2d_ref)
@@ -1495,7 +1632,7 @@ def main() -> int:
     # per band: B1 and B2 (render K=9, interpolate K=6) in the forward and
     # again in its recompute; B2 in interpolate's and render's backward; E1
     # in edge_grad's; B3 in render's backward and edge_grad's; B4 once.
-    av_per_step = {"B1 rasterize": 2 * AV_BANDS, "B2 gather_rows": 6 * AV_BANDS, "B3 scatter_rows": 2 * AV_BANDS,
+    av_per_step = {"B1 rasterize": 2 * AV_BANDS, "B2 gather_rows": 6 * AV_BANDS, "B3 scatter_rows": AV_BANDS,
                    "B4 window_accum": AV_BANDS, "B5 rasterize_lines": 0, "E1 edge_grad": AV_BANDS}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1514,7 +1651,7 @@ def main() -> int:
     if av_launches != {k: c * n_steps for k, c in av_per_step.items()}:
         raise AssertionError(f"avatar4k step: launches {av_launches} over {n_steps} steps, expected {av_per_step} "
                              "per step")
-    av_peak = torch.cuda.max_memory_allocated()
+    av_peak = peaks["avatar4k step"] = torch.cuda.max_memory_allocated()
     losses = [x.item() for x in losses]
     # At 4096^2 a pixel spans 1/8 of a base texel, so the mip selection
     # clamps to level 0 but where the finite differences cross the mesh's
@@ -1546,9 +1683,10 @@ def main() -> int:
 
     # ...its kernels held against their plain versions on the step's own
     # band-0 inputs (the current parameters): B1 under the viewport, B2 at
-    # K = 9, 6 (render, interpolate) and 16 (edge_grad, band and halo row),
-    # B3 on the banded edge_grad's bary x g rows, B4 on the mipmap
-    # backward's quad rows, captured from its launch.
+    # K = 9, 6 (render, interpolate) and 16 (the stencil table, band and
+    # halo row), E1 on the banded edge_grad backward's band 0, B3 on that
+    # band's bary x g rows, B4 on the mipmap backward's quad rows, captured
+    # from its launch.
     v_av, levels_av, msi_av = av_params[0].detach(), [x.detach() for x in av_params[1]], av_params[2].detach()
     vib_av = rast.broadcast_vi(av["vi"], 1)
     b1["avatar4k_band0"] = b1_vs_plain("avatar4k band 0", v_av, av["vi"], hb, AV_HW, 0, AV_HW)
@@ -1559,15 +1697,27 @@ def main() -> int:
         g_av = 2.0 * img_av / img_av.numel()  # the loss's cotangent of the shaded image
     b2_av = b2_vs_plain("avatar4k band 0", {9: _face_table(v_av, vib_av), 6: _face_table(av["vt"], vib_av)},
                         idx_av[:, :hb])
-    e1_band = capture_e1(lambda: banded._edge_grad_band_rows(
-        v_av, vib_av, banded._pad_frame(img_av, g_av, bary_av, idx_av), 0, hb, AV_HW, 1e4))
-    if len(e1_band) != 1:
-        raise AssertionError(f"avatar4k band 0: the banded edge_grad launched E1 {len(e1_band)} times, expected once")
-    e1["avatar4k_band0"] = e1_vs_plain("avatar4k band 0 and halo", e1_band[0])
-    rows_eg, idx_eg = edge_grad_mod._stencil_cuda(*e1_band[0]), e1_band[0][1]
-    del e1_band
-    # (B2 at K = 16 on the band's stencil rows: a check of B2 alone, since E1
-    # gathers them itself)
+    # E1 on the banded edge_grad backward's band 0 and its halo row (one
+    # launch a band, into one accumulator), and that backward alone.
+    vv = v_av.clone().requires_grad_()
+
+    def av_edge_grad_backward():
+        return torch.autograd.grad(tt.edge_grad_estimator_banded(vv, av["vi"], bary_av, img_av, idx_av, AV_BANDS), vv,
+                                   g_av)
+
+    e1_bands = capture_e1(av_edge_grad_backward)
+    if len(e1_bands) != AV_BANDS:
+        raise AssertionError(f"avatar4k: the banded edge_grad launched E1 {len(e1_bands)} times, expected {AV_BANDS}")
+    e1["avatar4k_band0"] = e1_vs_plain("avatar4k band 0 and halo", e1_bands[0])
+    del e1_bands
+    eg_bwd["avatar4k"] = backward_launches("avatar4k, banded", av_edge_grad_backward, AV_BANDS)
+    # (B2 at K = 16 on the band's stencil rows and B3 on its bary x g rows
+    # from the plain stencil: checks of B2 and B3 alone, since E1 gathers the
+    # corners and reduces to vertices itself)
+    blk = slice(0, hb + 1)
+    idx_eg = idx_av[:, blk]
+    rows_eg = edge_grad_mod._stencil_plain(_stencil_table(v_av, vib_av), idx_eg, img_av[:, :, blk], g_av[:, :, blk],
+                                           bary_av[:, :, blk], 1e4, 0, AV_HW).contiguous()  # as B3's callers pass rows
     b2_av.update(b2_vs_plain("avatar4k band 0 and halo", {16: _stencil_table(v_av, vib_av)}, idx_eg))
     b3_av = b3_record("avatar4k band 0 edge_grad", rows_eg, idx_eg, av_faces)
     b4_args, b4_launch = [], window_accum._window_accumulate_cuda
@@ -1677,12 +1827,14 @@ def main() -> int:
             return a, nm, a.matvec(x), a.rmatvec(y), g_bary
 
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         tt.reset_kernel_launch_counts()
         t0 = time.perf_counter()
         a, nm, ax, aty, g_bary = products()
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
         launches = tt.kernel_launch_counts()
+        peaks[f"interpolation matrices {scene}"] = torch.cuda.max_memory_allocated()
         if launches != im_per_call:
             raise AssertionError(f"interpolation matrices {scene}: launches {launches}, expected {im_per_call}")
         im_launches = {k: im_launches[k] + c for k, c in launches.items()}
@@ -1731,6 +1883,7 @@ def main() -> int:
             "structure_host_ms": structure_ms, "structure_cache_hit_ms": hit_ms, "first_products_ms": first_ms,
             **times, "device_busy_ms_per_call": profile["device_busy_ms_per_step"] if profile else None,
             "launches": launches, "rel_errs": errs, "limits": limits, "profile": profile,
+            "peak_mem_bytes": peaks[f"interpolation matrices {scene}"],
             "phase_seconds": time.perf_counter() - t_phase,
         })
         if scene == "textured":
@@ -1741,23 +1894,26 @@ def main() -> int:
         del a, nm, ax, aty, g_bary, plain, want_ax, want_aty, img
 
     # 19. The row-sharded step.
-    sharded_launches = row_sharded_phase()
+    sharded_rank0 = row_sharded_phase()
+    sharded_launches = sharded_rank0["launches"]
+    e1["row-sharded rank 0"] = {"verts max_dp_dr=10000": sharded_rank0["e1_vs_plain"]}
+    peaks["row-sharded step rank 0"] = sharded_rank0["peak_mem_bytes"]
 
     # 14. The kernels, with the numbers of this run; times per fitting step
     # (B2: K=9 and K=6 in the forward, again in the backward; B3: K=9 in
-    # render's and edge_grad's backward, K=6 in interpolate's; E1 once, in
-    # edge_grad's backward, in rows mode). B2's K=16 launches are a check of
-    # B2 alone: since E1, no step makes them.
+    # render's backward, K=6 in interpolate's; E1 once, the whole edge_grad
+    # backward, in verts mode). B2's K=16 launches and B3 on edge_grad's rows
+    # are checks of B2 and B3 alone: since E1, no step makes them.
     b2_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "library_device_ms")
 
     def b2_step(key, recs=b2):
         return 2 * recs[9][key] + 2 * recs[6][key]
 
     def b3_step(key):
-        return 2 * b3[9][key] + b3[6][key]
+        return b3[9][key] + b3[6][key]
 
-    def b3_inv_step(key):  # B3 at K=9 in render's and edge_grad's backward
-        return 2 * b3_inv[9][key]
+    def b3_inv_step(key):  # B3 at K=9 in render's backward
+        return b3_inv[9][key]
 
     by_path = {"fit_step": main_launches, "inverse8_step": inv_launches, "wireframe": wire_launches,
                "avatar4k": av_launches, "fisheye62_step": fish["launches"], "lens_list_step": mixed["launches"],
@@ -1790,7 +1946,7 @@ def main() -> int:
                                             ("mipmap_views_uv_derivative", b2_mv))}},
         {"name": "B3 segment_rows._accumulate_kernel", "route": "cuda",
          "source": "drtk_tpu_torch/csrc/scatter_rows.cu", "replaces": "drtk_tpu/ops/segment_rows.py:129",
-         "launches": main_launches["B3 scatter_rows"], "launches_per_step": 3,
+         "launches": main_launches["B3 scatter_rows"], "launches_per_step": 2,
          "max_abs_err": max(r["max_abs_err"] for recs in (b3, b3_inv, {9: b3_av}) for r in recs.values()),
          "ms": b3_step("ms"), "device_ms": b3_step("device_ms"), "plain_ms": b3_step("plain_ms"),
          "bound_ms": b3_step("bound_ms"), "bound_by": "bytes", "library_ms": b3_step("library_ms"),
@@ -1816,18 +1972,22 @@ def main() -> int:
          "device_ms": b5["inverse8"]["device_ms"], "plain_ms": b5["inverse8"]["plain_ms"], "bound_ms": b5["inverse8"]["bound_ms"],
          "bound_by": b5["inverse8"]["bound_by"], "full_test_ops_ms": b5["inverse8"]["full_test_ops_ms"],
          "key_buffer_ms": b5["inverse8"]["key_buffer_ms"], "library_ms": None},
-        {"name": "E1 edge_grad CRD stencil", "route": "cuda", "source": "drtk_tpu_torch/csrc/edge_grad.cu",
-         "replaces": "drtk_tpu/ops/edge_grad.py:114 _edge_grad_backward (B2's K=16 gather + XLA)",
+        {"name": "E1 edge_grad backward", "route": "cuda", "source": "drtk_tpu_torch/csrc/edge_grad.cu",
+         "replaces": "drtk_tpu/ops/edge_grad.py:114 _edge_grad_backward and :288-318 _edge_grad_core_bwd (B2's K=16 "
+                     "gather + XLA stencil + B3's accumulate + the vertex scatter)",
          "launches": main_launches["E1 edge_grad"], "launches_per_step": 1,
-         **{k: e1["textured"]["rows max_dp_dr=10000"][k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
-                                                                    "bound_ms", "bound_by", "library_ms")},
-         "by_input": {label: {mode: {k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "rel_err",
-                                                       "nonzero_equal") if k in r} for mode, r in recs.items()}
-                      for label, recs in e1.items()}},
+         **{k: e1["textured"]["verts max_dp_dr=10000"][k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                                                                     "bound_ms", "bound_by", "library_ms")},
+         "kernel_device_ms": e1["textured"]["verts max_dp_dr=10000"]["kernel_device_ms"],
+         "by_input": {label: {mode: {k: r[k] for k in ("ms", "device_ms", "kernel_device_ms", "plain_ms", "bound_ms",
+                                                       "rel_err", "nonzero_equal") if k in r}
+                              for mode, r in recs.items()} for label, recs in e1.items()}},
     ]
     for row, key in zip(kernels, ("B1 rasterize", "B2 gather_rows", "B3 scatter_rows", "B4 window_accum",
                                   "B5 rasterize_lines", "E1 edge_grad")):
         row["launches_by_path"] = paths(key)
+    emit({"phase": "peak memory by path", "peak_mem_bytes": peaks,
+          "edge_grad_backward_alone": {path: r["peak_mem_bytes"] for path, r in eg_bwd.items()}})
     emit({"kernels": kernels})
     return finish(smi)
 

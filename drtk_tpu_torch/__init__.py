@@ -25,8 +25,8 @@ multi-device layer is :mod:`drtk_tpu_torch.parallel` (``sharding``,
 On CUDA tensors the rasterizer's
 resolve (B1), its wireframe resolve (B5), the per-pixel face-row gather
 (B2), the pixel-to-face row accumulation (B3), the texture-gradient
-scatter, which is also grid_scatter's splat (B4), and edge_grad's backward
-stencil (E1) run as hand-written kernels for Hopper (sm_90a), built with
+scatter, which is also grid_scatter's splat (B4), and edge_grad's whole
+backward (E1) run as hand-written kernels for Hopper (sm_90a), built with
 nvcc at first use; on CPU tensors their plain PyTorch versions run.
 Nothing is compiled when the package is imported.
 """

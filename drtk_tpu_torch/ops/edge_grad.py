@@ -9,25 +9,29 @@ or adjacent; the image-difference dot ``sum_c (img[nbr] - img[center]) *
 intersections, into x/y and z through ``dp_dr`` from projected face normals
 (with the ``max_dp_dr`` clamp). The negated contributions form an
 [N, 3, H, W] image-space gradient (:func:`edge_grad_image`), which reaches
-the vertices through interpolate's VJP with ``bary_img`` detached:
-``bary x g`` summed to face rows by kernel B3, then to vertices with
-``index_add_``.
+the vertices through interpolate's VJP with ``bary_img`` detached: ``bary x
+g`` summed to each pixel's face, then to its three vertices.
 
-The stencil, with its gather of each pixel's 16-float face row (corners,
-normal) by index and, in the backward, the ``bary x g`` rows, is kernel E1
-(``csrc/edge_grad.cu``) on a CUDA tensor and :func:`_stencil_plain`, B2's
-plain gather and elementwise torch ops, on a CPU tensor
-(:func:`edge_grad_stencil`). In the JAX package it is B2's Pallas gather
-and XLA that ``jax.jit`` fuses. The backward takes a row tile
-(``y_offset``, ``full_height``), as the JAX backward does: the pixel grid
-is the global rows, and stencil centres on the frame's last row are
-dropped. :func:`~drtk_tpu_torch.parallel.banded.edge_grad_estimator_banded`
-runs it band by band. With a process ``group``, the inputs are one rank's
-row block of a frame sharded by rows (``drtk_tpu/ops/edge_grad.py:
-330-410``): the backward fetches the next rank's first row of ``img``, the
-cotangent, ``index_img`` and ``bary_img`` (:func:`~drtk_tpu_torch.ops.math.
-next_rank_rows`; the last rank takes a background row) and reduces the
-block and that halo row to the rank's part of the vertex gradient.
+The whole backward, from index image to vertex gradient, is kernel E1
+(``csrc/edge_grad.cu``) on a CUDA tensor, one launch
+(:func:`edge_grad_to_verts`): each stencil centre sends its nonzero parts
+through its pixels' faces to the vertices with atomics, reading the corners
+through ``vi``. On a CPU tensor it is the plain version: the [N, F, 16]
+stencil table (corners, normal), :func:`_stencil_plain` (B2's plain gather
+and elementwise torch ops) for the per-pixel ``bary x g`` rows, then B3's
+plain scatter to faces and ``index_add_`` to vertices. In the JAX package it
+is B2's Pallas gather and XLA that ``jax.jit`` fuses, then B3's Pallas
+accumulate and a scatter. The backward takes a row tile (``y_offset``,
+``full_height``), as the JAX backward does: the pixel grid is the global
+rows, and stencil centres on the frame's last row are dropped.
+:func:`~drtk_tpu_torch.parallel.banded.edge_grad_estimator_banded` runs it
+band by band into one accumulator. With a process ``group``, the inputs are
+one rank's row block of a frame sharded by rows (``drtk_tpu/ops/
+edge_grad.py:330-410``): the backward fetches the next rank's first row of
+``img``, the cotangent, ``index_img`` and ``bary_img``
+(:func:`~drtk_tpu_torch.ops.math.next_rank_rows`; the last rank takes a
+background row) and reduces the block and that halo row to the rank's part
+of the vertex gradient.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ from drtk_tpu_torch.ops.rasterize import broadcast_vi
 from drtk_tpu_torch.ops.render import _face_table, _pixel_grid, _pixels_to_verts
 from drtk_tpu_torch.ops.segment_rows import _gather_rows_plain
 
-__all__ = ["edge_grad_estimator", "edge_grad_image"]
+__all__ = ["edge_grad_estimator", "edge_grad_image", "edge_grad_to_verts"]
 
 # Launches of kernel E1 since the last reset (see
 # drtk_tpu_torch.kernel_launch_counts).
@@ -53,7 +57,15 @@ launches = 0
 
 
 def _safe_normalize(x: torch.Tensor) -> torch.Tensor:
-    n = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    """``x / |x|`` over the last axis (``x`` where ``|x|`` is 0). The norm is
+    the square root of the squares summed in axis order, each op rounded on
+    its own, as kernel E1 computes it (``torch.linalg.vector_norm`` sums in
+    another order, or in float64 on the CPU)."""
+    sq = x * x
+    total = sq[..., 0]
+    for i in range(1, x.shape[-1]):
+        total = total + sq[..., i]
+    n = torch.sqrt(total)[..., None]
     return x / torch.where(n == 0, torch.ones_like(n), n)
 
 
@@ -112,11 +124,16 @@ def _get_dp_dr(n_varying, n_fixed, max_dp_dr: float):
 
 
 def _face_normals(v_pix: torch.Tensor, vi: torch.Tensor) -> torch.Tensor:
-    """Per-face normals ``normalize(cross(p0 - p2, p1 - p0))``, [N, F, 3]."""
+    """Per-face normals ``normalize(cross(p0 - p2, p1 - p0))``, [N, F, 3].
+    The cross product's products and differences are rounded each on its
+    own, as kernel E1 computes them (``torch.linalg.cross`` may contract
+    them into FMAs)."""
     n = v_pix.shape[0]
     f = _face_table(v_pix, vi).reshape(n, -1, 3, 3)
-    p0, p1, p2 = f[..., 0, :], f[..., 1, :], f[..., 2, :]
-    return _safe_normalize(torch.linalg.cross(p0 - p2, p1 - p0, dim=-1))
+    a, b = f[..., 0, :] - f[..., 2, :], f[..., 1, :] - f[..., 0, :]
+    cross = torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1], a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                         a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
+    return _safe_normalize(cross)
 
 
 def _stencil_table(v_pix: torch.Tensor, vi: torch.Tensor) -> torch.Tensor:
@@ -128,24 +145,35 @@ def _stencil_table(v_pix: torch.Tensor, vi: torch.Tensor) -> torch.Tensor:
     )
 
 
+class _Shape(ctypes.Structure):
+    """E1's launch scalars (``struct Shape`` of ``csrc/edge_grad.cu``):
+    extents, batch strides, the channel, row and column strides of img,
+    the cotangent and bary (in elements), max_dp_dr, y_offset, y_end."""
+
+    _fields_ = (
+        [(k, ctypes.c_int32) for k in ("n_batch", "c_dim", "h", "w", "n_verts", "n_faces")]
+        + [(k, ctypes.c_int64) for k in ("v_sn", "vi_sn", "idx_sn", "img_sn", "grad_sn", "bary_sn")]
+        + [(f"{t}_{k}", ctypes.c_int32) for t in ("img", "grad", "bary") for k in ("sc", "sh", "sw")]
+        + [("max_dp_dr", ctypes.c_double), ("y_offset", ctypes.c_int32), ("y_end", ctypes.c_int32)]
+    )
+
+
 _C_ENTRY = {torch.float32: "drtk_edge_grad_f32", torch.float64: "drtk_edge_grad_f64"}
-_ARGTYPES = (
-    [ctypes.c_void_p] * 6 + [ctypes.c_int32] * 5 + [ctypes.c_int64] * 7 + [ctypes.c_double]
-    + [ctypes.c_int32] * 2 + [ctypes.c_void_p]
-)
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.POINTER(_Shape), ctypes.c_void_p]
 _MAX_BATCH = 65535  # E1 takes the batch from blockIdx.y
 
 
 def _stencil_plain(
     table, index_img, img, grad_output, bary_img, max_dp_dr: float, y_offset: int = 0, full_height: int = -1
 ):
-    """Plain PyTorch version of kernel E1 (``drtk_tpu/ops/edge_grad.py:
-    114-276``): the CRD stencil of the [N, F, 16] ``table`` rows (B2's
-    gather, then elementwise ops), the image gradient [N, 3, H, W]; with
-    ``bary_img`` the rows ``bary[k] * out[j]`` [N, H, W, 9] instead. With
-    ``full_height >= 0`` the block holds rows ``[y_offset, y_offset + H)``
-    of a ``full_height``-row frame: the pixel grid takes the global rows and
-    stencil centres on global row ``full_height - 1`` are dropped
+    """The CRD stencil in plain PyTorch (``drtk_tpu/ops/edge_grad.py:
+    114-276``) of the [N, F, 16] ``table`` rows (B2's gather, then
+    elementwise ops): the image gradient [N, 3, H, W], which is E1's image
+    mode; with ``bary_img`` the per-pixel rows ``bary[k] * out[j]``
+    [N, H, W, 9] instead, which :func:`_verts_plain` reduces to vertices.
+    With ``full_height >= 0`` the block holds rows ``[y_offset, y_offset +
+    H)`` of a ``full_height``-row frame: the pixel grid takes the global
+    rows and stencil centres on global row ``full_height - 1`` are dropped
     (``:259-264``)."""
     dtype = table.dtype
     n, c, h, w = img.shape
@@ -246,113 +274,158 @@ def _stencil_plain(
     return (bary[..., :, None] * g_rows[..., None, :]).reshape(n, h, w, 9)
 
 
+def _verts_plain(
+    v_pix, vi, index_img, img, grad_output, bary_img, max_dp_dr: float, y_offset: int = 0, full_height: int = -1
+):
+    """Plain PyTorch version of E1's verts mode (``drtk_tpu/ops/
+    edge_grad.py:288-318``): the stencil table, :func:`_stencil_plain`'s
+    per-pixel rows, then B3's plain scatter to face rows (background
+    dropped, index clamped to F - 1) and ``index_add_`` to the vertices
+    (ids clamped to V - 1). [N, V, 3]."""
+    rows = _stencil_plain(
+        _stencil_table(v_pix, vi), index_img, img, grad_output, bary_img, max_dp_dr, y_offset, full_height
+    )
+    return _pixels_to_verts(rows, index_img, vi, v_pix.shape[1], "plain")
+
+
 def _rows_layout(x: torch.Tensor) -> torch.Tensor:
-    """``x`` [N, C, H, W] (or [N, H, W]) itself where its rows are
-    contiguous, which E1 reads through its batch and channel strides (a
-    band's slice of a frame is), else a contiguous copy."""
+    """``x`` itself where its last two axes are contiguous (E1 reads the
+    leading axis through its stride: an expanded ``vi``, a band's slice of
+    an index image), else a contiguous copy."""
     if x.stride(-1) == 1 and (x.shape[-2] <= 1 or x.stride(-2) == x.shape[-1]):
         return x
     return x.contiguous()
 
 
-def _stencil_cuda(
-    table, index_img, img, grad_output, bary_img, max_dp_dr: float, y_offset: int = 0, full_height: int = -1
+def _strides(x: torch.Tensor) -> list[int]:
+    """``x``'s strides in elements, 0 along axes of extent 1 (never
+    stepped along)."""
+    return [st if size > 1 else 0 for st, size in zip(x.stride(), x.shape)]
+
+
+def _e1_cuda(
+    v_pix, vi, index_img, img, grad_output, bary_img, max_dp_dr: float, y_offset: int = 0, full_height: int = -1,
+    out=None,
 ):
-    """Launch kernel E1 on the tensors' device and current stream."""
-    if table.dtype not in _C_ENTRY:
-        raise TypeError(f"edge_grad stencil: no kernel for {table.dtype} tables")
-    if index_img.dtype != torch.int32:
-        raise TypeError(f"edge_grad stencil: expected int32 index, got {index_img.dtype}")
-    tensors = [table, index_img, img, grad_output] + ([] if bary_img is None else [bary_img])
-    if table.device.type != "cuda" or any(t.device != table.device for t in tensors):
-        raise ValueError("edge_grad stencil: every tensor must lie on one CUDA device")
+    """Launch kernel E1 on the tensors' device and current stream: verts
+    mode with ``bary_img`` (adding into ``out``, zeros if None), image mode
+    without."""
+    if v_pix.dtype not in _C_ENTRY:
+        raise TypeError(f"edge_grad kernel: no kernel for {v_pix.dtype} vertices")
+    if index_img.dtype != torch.int32 or vi.dtype != torch.int32:
+        raise TypeError(f"edge_grad kernel: expected int32 index and vi, got {index_img.dtype} and {vi.dtype}")
+    if any(t.dtype != v_pix.dtype for t in (img, grad_output, bary_img) if t is not None):
+        raise TypeError(f"edge_grad kernel: img, the cotangent and bary must be {v_pix.dtype}")
+    tensors = [v_pix, vi, index_img, img, grad_output] + [t for t in (bary_img, out) if t is not None]
+    if v_pix.device.type != "cuda" or any(t.device != v_pix.device for t in tensors):
+        raise ValueError("edge_grad kernel: every tensor must lie on one CUDA device")
     return _launch(
-        lambda: _build.entry("edge_grad", _C_ENTRY[table.dtype], _ARGTYPES),
-        torch.cuda.current_stream(table.device).cuda_stream,
-        table, index_img, img, grad_output, bary_img, max_dp_dr, y_offset, full_height,
+        lambda: _build.entry("edge_grad", _C_ENTRY[v_pix.dtype], _ARGTYPES),
+        torch.cuda.current_stream(v_pix.device).cuda_stream,
+        v_pix, vi, index_img, img, grad_output, bary_img, max_dp_dr, y_offset, full_height, out,
     )
 
 
-def _launch(entry, stream, table, index_img, img, grad_output, bary_img, max_dp_dr, y_offset, full_height):
+def _launch(entry, stream, v_pix, vi, index_img, img, grad_output, bary_img, max_dp_dr, y_offset, full_height, out):
     """Call E1's C entry (``entry()``, looked up once the limits pass) on
-    ``stream`` for tensors of one device whose types
-    :func:`_stencil_cuda` checked: the limits, the layouts E1 reads, the
-    output and the launch count."""
+    ``stream`` for tensors of one device whose types :func:`_e1_cuda`
+    checked: the limits, the layouts E1 reads, the output and the launch
+    count."""
     global launches
     n, c, h, w = img.shape
-    f_cnt = table.shape[1]
+    n_verts, f_cnt = v_pix.shape[1], vi.shape[1]
 
     def check_limits(extents):
         if n > _MAX_BATCH or max(extents) >= 2**31:
             raise ValueError(
-                f"edge_grad stencil: the kernel takes at most {_MAX_BATCH} batches and 32-bit offsets within a "
-                f"batch, got N={n}, C={c}, H={h}, W={w}, F={f_cnt}"
+                f"edge_grad kernel: at most {_MAX_BATCH} batches and 32-bit offsets within a batch, got N={n}, "
+                f"C={c}, H={h}, W={w}, V={n_verts}, F={f_cnt}"
             )
 
-    check_limits([h * w * (9 if bary_img is not None else 3), f_cnt * 16, c * h * w])  # before any copy
-    table = table.contiguous()
-    if table.data_ptr() % 16:  # E1 reads the rows as 16-byte vectors
-        table = table.clone()
-    index_img, img, grad_output = _rows_layout(index_img), _rows_layout(img), _rows_layout(grad_output)
-    bary_img = None if bary_img is None else _rows_layout(bary_img)
-    check_limits([(c - 1) * t.stride(1) + h * w for t in (img, grad_output)]
-                 + ([] if bary_img is None else [2 * bary_img.stride(1) + h * w]))
+    images = [img, grad_output] + ([] if bary_img is None else [bary_img])  # read through their strides
+    check_limits([h * w, n_verts * 3, f_cnt * 3] + [sum((k - 1) * st for k, st in zip(t.shape[1:], _strides(t)[1:]))
+                                                     for t in images])  # before any copy
+    v_pix, vi, index_img = _rows_layout(v_pix), _rows_layout(vi), _rows_layout(index_img)
     if bary_img is None:
-        out = torch.empty((n, 3, h, w), dtype=table.dtype, device=table.device)
-        bary_ptr, bary_sn, bary_sc = None, 0, 0
+        out = torch.empty((n, 3, h, w), dtype=v_pix.dtype, device=v_pix.device)
+        bary_strides, bary_ptr = [0, 0, 0, 0], None
     else:
-        out = torch.empty((n, h, w, 9), dtype=table.dtype, device=table.device)
-        bary_ptr, bary_sn, bary_sc = bary_img.data_ptr(), bary_img.stride(0), bary_img.stride(1)
+        if out is None:
+            out = torch.zeros((n, n_verts, 3), dtype=v_pix.dtype, device=v_pix.device)
+        elif out.shape != (n, n_verts, 3) or out.dtype != v_pix.dtype or not out.is_contiguous():
+            raise ValueError(
+                f"edge_grad kernel: out must be a contiguous {v_pix.dtype} tensor of shape {(n, n_verts, 3)}, got "
+                f"{out.dtype} {tuple(out.shape)}"
+            )
+        bary_strides, bary_ptr = _strides(bary_img), bary_img.data_ptr()
+    img_s, grad_s = _strides(img), _strides(grad_output)
     y_end = h - 1 if full_height < 0 else max(0, min(h - 1, full_height - 1 - y_offset))
+    shape = _Shape(
+        n, c, h, w, n_verts, f_cnt, v_pix.stride(0), vi.stride(0), index_img.stride(0), img_s[0], grad_s[0],
+        bary_strides[0], *img_s[1:], *grad_s[1:], *bary_strides[1:], float(max_dp_dr), y_offset, y_end,
+    )
     err = entry()(
-        table.data_ptr(), index_img.data_ptr(), img.data_ptr(), grad_output.data_ptr(), bary_ptr, out.data_ptr(),
-        n, c, h, w, f_cnt, index_img.stride(0), img.stride(0), img.stride(1), grad_output.stride(0),
-        grad_output.stride(1), bary_sn, bary_sc, float(max_dp_dr), y_offset, y_end, stream,
+        v_pix.data_ptr(), vi.data_ptr(), index_img.data_ptr(), img.data_ptr(), grad_output.data_ptr(), bary_ptr,
+        out.data_ptr(), ctypes.byref(shape), stream,
     )
     _build.check("edge_grad", err, "edge_grad kernel")
     launches += 1
     return out
 
 
-def edge_grad_stencil(
-    table: torch.Tensor,
+def _takes_plain(impl: str, device: torch.device) -> bool:
+    """E1's dispatch, as every kernel of the port dispatches: the plain
+    version for impl="plain" or a CPU tensor, the kernel for a CUDA
+    tensor."""
+    if impl == "plain" or (impl == "auto" and device.type == "cpu"):
+        return True
+    if impl == "auto" and device.type == "cuda":
+        return False
+    raise ValueError(f"edge_grad: impl {impl!r} on device {device}")
+
+
+def edge_grad_to_verts(
+    v_pix: torch.Tensor,
+    vi: torch.Tensor,
     index_img: torch.Tensor,
     img: torch.Tensor,
     grad_output: torch.Tensor,
-    bary_img: Optional[torch.Tensor],
+    bary_img: torch.Tensor,
     max_dp_dr: float,
     y_offset: int = 0,
     full_height: int = -1,
+    out: Optional[torch.Tensor] = None,
     impl: str = "auto",
 ) -> torch.Tensor:
-    """The backward's CRD stencil: kernel E1 on CUDA tensors, its plain
-    version on CPU tensors or with ``impl="plain"``.
+    """The edge_grad backward from index image to vertex gradient
+    (``drtk_tpu/ops/edge_grad.py:288-318``): kernel E1 in verts mode on
+    CUDA tensors, one launch; :func:`_verts_plain` on CPU tensors or with
+    ``impl="plain"``.
 
     Args:
-        table: [N, F, 16] float32 or float64 stencil rows
-            (:func:`_stencil_table`).
+        v_pix: [N, V, 3] float32 or float64 pixel-space vertices.
+        vi: [N, F, 3] int32 faces.
         index_img: [N, H, W] int32 index image.
         img, grad_output: [N, C, H, W] image and its cotangent.
-        bary_img: [N, 3, H, W] barycentrics for rows mode, or None for
-            image mode.
+        bary_img: [N, 3, H, W] barycentrics (detached).
         max_dp_dr: magnitude clamp for dp/dr (0.0 disables it).
         y_offset, full_height: the block's first global row and the frame's
             height on a row tile; ``full_height`` -1 means no row tile.
+        out: a [N, V, 3] accumulator of ``v_pix``'s dtype to add into (the
+            bands of a frame share one); None for a new one of zeros.
         impl: "auto" or "plain", as for the other kernels.
 
     Returns:
-        Image mode: the image gradient [N, 3, H, W]. Rows mode: the rows
-        ``bary[k] * out[j]`` at ``3k + j``, [N, H, W, 9]. Of the table's
-        dtype; ``img``, ``grad_output`` and ``bary_img`` are cast to it.
+        The vertex gradient [N, V, 3]: ``out`` when given. ``img``,
+        ``grad_output`` and ``bary_img`` are cast to ``v_pix``'s dtype.
     """
-    dtype = table.dtype
-    img, grad_output = img.to(dtype), grad_output.to(dtype)
-    bary_img = None if bary_img is None else bary_img.to(dtype)
-    if impl == "plain" or (impl == "auto" and table.device.type == "cpu"):
-        return _stencil_plain(table, index_img, img, grad_output, bary_img, max_dp_dr, y_offset, full_height)
-    if impl == "auto" and table.device.type == "cuda":
-        return _stencil_cuda(table, index_img, img, grad_output, bary_img, max_dp_dr, y_offset, full_height)
-    raise ValueError(f"edge_grad stencil: impl {impl!r} on device {table.device}")
+    dtype = v_pix.dtype
+    img, grad_output, bary_img = img.to(dtype), grad_output.to(dtype), bary_img.to(dtype)
+    args = (v_pix, vi, index_img, img, grad_output, bary_img, max_dp_dr, y_offset, full_height)
+    if not _takes_plain(impl, v_pix.device):
+        return _e1_cuda(*args, out=out)
+    grad = _verts_plain(*args)
+    return grad if out is None else out.add_(grad)
 
 
 def _edge_grad_backward(
@@ -360,23 +433,15 @@ def _edge_grad_backward(
     full_height: int | None = None,
 ):
     """The image-space gradient [N, 3, H, W] (``drtk_tpu/ops/edge_grad.py:
-    114-276``); ``y_offset`` and ``full_height`` as for
-    :func:`edge_grad_stencil` (None: no row tile)."""
-    return edge_grad_stencil(
-        _stencil_table(v_pix, vi), index_img, img, grad_output, None, max_dp_dr, y_offset,
-        -1 if full_height is None else full_height, impl,
-    )
-
-
-def _edge_grad_block_rows(v_pix, vi, block, y0: int, height: int, max_dp_dr: float, impl="auto"):
-    """The per-pixel ``bary x g`` rows [N, hb+1, W, 9] of a block that
-    owns the stencil centres of rows ``[y0, y0 + hb)`` of a ``height``-row
-    frame, with its index [N, hb+1, W]. ``block`` = (img, g, bary, index)
-    holds those rows and one halo row below them (the stencil's D leg):
-    the next rows of the frame, or a background row (zeros, index -1)."""
-    img_b, g_b, bary_b, idx_b = block
-    rows = edge_grad_stencil(_stencil_table(v_pix, vi), idx_b, img_b, g_b, bary_b, max_dp_dr, y0, height, impl)
-    return rows, idx_b
+    114-276``): kernel E1 in image mode on CUDA tensors, ``_stencil_plain``
+    on CPU tensors or with ``impl="plain"``; ``y_offset`` and
+    ``full_height`` as for :func:`edge_grad_to_verts` (None: no row
+    tile). ``img`` and ``grad_output`` are cast to ``v_pix``'s dtype."""
+    img, grad_output = img.to(v_pix.dtype), grad_output.to(v_pix.dtype)
+    args = (index_img, img, grad_output, None, max_dp_dr, y_offset, -1 if full_height is None else full_height)
+    if _takes_plain(impl, v_pix.device):
+        return _stencil_plain(_stencil_table(v_pix, vi), *args)
+    return _e1_cuda(v_pix, vi, *args)
 
 
 class _EdgeGrad(torch.autograd.Function):
@@ -392,12 +457,8 @@ class _EdgeGrad(torch.autograd.Function):
         v_pix, vi, bary_img, img, index_img = ctx.saved_tensors
         grad_v_pix = None
         if ctx.needs_input_grad[0]:
-            # interpolate's VJP with bary detached: bary x g per pixel (E1's
-            # rows), then pixels -> faces (B3, background dropped) -> vertices.
-            rows = edge_grad_stencil(
-                _stencil_table(v_pix, vi), index_img, img, grad_output, bary_img, ctx.max_dp_dr, impl=ctx.impl
-            )
-            grad_v_pix = _pixels_to_verts(rows, index_img, vi, v_pix.shape[1], ctx.impl)
+            grad_v_pix = edge_grad_to_verts(v_pix, vi, index_img, img, grad_output, bary_img, ctx.max_dp_dr,
+                                            impl=ctx.impl)
         grad_img = grad_output if ctx.needs_input_grad[3] else None
         return grad_v_pix, None, None, grad_img, None, None, None
 
@@ -413,7 +474,8 @@ class _EdgeGradSharded(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_output):
         """``drtk_tpu/ops/edge_grad.py:343-410``: the block and the next
-        rank's first row, reduced to this rank's part of the vertex
+        rank's first row (the stencil's D leg; the last rank takes a
+        background row), reduced to this rank's part of the vertex
         gradient; the sum over the group is the replicated input's (see
         :func:`~drtk_tpu_torch.ops.math.psum_cotangent`)."""
         v_pix, vi, bary_img, img, index_img = ctx.saved_tensors
@@ -423,11 +485,9 @@ class _EdgeGradSharded(torch.autograd.Function):
             block = (img, grad_output, bary_img, index_img)
             firsts = [img[:, :, :1], grad_output[:, :, :1], bary_img[:, :, :1], index_img[:, :1]]
             halo = next_rank_rows(firsts, (0, 0, 0, -1), ctx.group)
-            ext = [torch.cat([b, h], dim=2 if b.ndim == 4 else 1) for b, h in zip(block, halo)]
-            rows, idx_ext = _edge_grad_block_rows(
-                v_pix, vi, ext, ctx.y_offset, ctx.full_height, ctx.max_dp_dr, ctx.impl
-            )
-            grad_v_pix = _pixels_to_verts(rows, idx_ext, vi, v_pix.shape[1], ctx.impl)
+            img_e, g_e, bary_e, idx_e = (torch.cat([b, h], dim=2 if b.ndim == 4 else 1) for b, h in zip(block, halo))
+            grad_v_pix = edge_grad_to_verts(v_pix, vi, idx_e, img_e, g_e, bary_e, ctx.max_dp_dr, ctx.y_offset,
+                                            ctx.full_height, impl=ctx.impl)
         grad_img = grad_output if ctx.needs_input_grad[3] else None
         return grad_v_pix, None, None, grad_img, None, None, None, None, None, None
 
@@ -460,8 +520,8 @@ def edge_grad_estimator(
         v_pix_img_hook: unsupported, as in the JAX package; call
             :func:`edge_grad_image` for the image-space gradient instead.
         max_dp_dr: magnitude clamp for dp/dr (0.0 disables it).
-        impl: "auto" runs kernels E1 and B3 on CUDA tensors; "plain" runs
-            their plain versions on any device.
+        impl: "auto" runs kernel E1 on CUDA tensors; "plain" runs its
+            plain version on any device.
         group: a ``torch.distributed`` process group whose ranks hold
             consecutive row blocks of one frame, in rank order (the "pix"
             group of :func:`~drtk_tpu_torch.parallel.sharding.make_mesh`);

@@ -7,8 +7,9 @@ for every pixel. On a CUDA tensor it launches kernel B2
 Both are exact copies of the table rows, so the two agree bit for bit.
 
 :func:`scatter_rows_to_faces` sums per-pixel rows into per-face rows by the
-same index, the reduction at the end of every VJP of render, interpolate and
-edge_grad. On a CUDA tensor it launches kernel B3
+same index, the reduction at the end of the VJPs of render and interpolate
+(edge_grad's backward, kernel E1, reduces to vertices itself; its plain
+version takes the plain scatter). On a CUDA tensor it launches kernel B3
 (``csrc/scatter_rows.cu``); on a CPU tensor it runs
 :func:`_scatter_rows_plain`. B3 sums each 32 x 8 pixel tile's rows per
 distinct face on chip and adds the partials with atomics, whose order

@@ -8,10 +8,10 @@ a frame so that a step holds one band's intermediates at a time.
   ``torch.utils.checkpoint`` so the backward recomputes one band at a time,
   and concatenates the outputs along the row axis.
 * :func:`edge_grad_estimator_banded` is ``edge_grad_estimator`` whose
-  backward runs the CRD stencil band by band, each band with a one-row
-  halo (the next band's first row, the stencil's D leg) sliced from the
-  full arrays, and reduces each band's ``bary x g`` rows to faces with
-  kernel B3 on the card, one launch per band.
+  backward runs band by band, each band with a one-row halo (the next
+  band's first row, the stencil's D leg) sliced from the full arrays, and
+  adds each band's vertex gradient into one accumulator: one launch of
+  kernel E1 per band on the card.
 
 Banded output equals the full frame's when the band function is per pixel;
 gradients then differ only by summation order.
@@ -22,14 +22,12 @@ from __future__ import annotations
 from typing import Any, Callable
 
 import torch
-import torch.nn.functional as F
 from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
-from drtk_tpu_torch.ops.edge_grad import _edge_grad_block_rows
+from drtk_tpu_torch.ops.edge_grad import edge_grad_to_verts
 from drtk_tpu_torch.ops.math import autocast_f32
 from drtk_tpu_torch.ops.rasterize import broadcast_vi
-from drtk_tpu_torch.ops.render import _pixels_to_verts
 
 __all__ = ["edge_grad_estimator_banded", "map_row_bands"]
 
@@ -69,28 +67,6 @@ def map_row_bands(band_fn: Callable, height: int, n_bands: int, remat: bool = Tr
     return pytree.tree_unflatten([torch.cat(leaves, dim=-2) for leaves in zip(*(f[0] for f in flat))], spec)
 
 
-def _pad_rows(x: torch.Tensor, value=0) -> torch.Tensor:
-    """One row appended on axis -2."""
-    return F.pad(x, (0, 0, 0, 1), value=value)
-
-
-def _edge_grad_band_rows(v_pix, vi, padded, y0: int, hb: int, height: int, max_dp_dr: float, impl="auto"):
-    """The per-pixel ``bary x g`` rows [N, hb+1, W, 9] of the band owning
-    stencil centres in rows ``[y0, y0 + hb)``, and its index block
-    [N, hb+1, W]: the band and one halo row sliced from ``padded`` = (img,
-    g, bary, index) with one background row appended."""
-    rows = slice(y0, y0 + hb + 1)
-    img_p, g_p, bary_p, idx_p = padded
-    block = (img_p[:, :, rows], g_p[:, :, rows], bary_p[:, :, rows], idx_p[:, rows])
-    return _edge_grad_block_rows(v_pix, vi, block, y0, height, max_dp_dr, impl)
-
-
-def _pad_frame(img, g, bary_img, index_img):
-    """(img, g, bary, index) with one background row (zeros, index -1)
-    appended, so every band's halo slice has the same shape."""
-    return _pad_rows(img), _pad_rows(g), _pad_rows(bary_img), _pad_rows(index_img, -1)
-
-
 class _EdgeGradBanded(torch.autograd.Function):
     @staticmethod
     def forward(ctx, v_pix, vi, bary_img, img, index_img, max_dp_dr, n_bands, impl):
@@ -101,18 +77,21 @@ class _EdgeGradBanded(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_output):
         """``drtk_tpu/parallel/banded.py:109-173``: the full-frame backward,
-        one band at a time; each band's halo-row contributions reduce to
-        vertices with the band, and the bands' vertex gradients are summed."""
+        one band at a time, each band's halo-row contributions reduced to
+        vertices with the band, into one accumulator. The last band needs
+        no halo row: its stencil centres on the frame's last row are
+        dropped."""
         v_pix, vi, bary_img, img, index_img = ctx.saved_tensors
         grad_v_pix = None
         if ctx.needs_input_grad[0]:
             h = img.shape[2]
             hb = _band_height(h, ctx.n_bands)
-            padded = _pad_frame(img, grad_output, bary_img, index_img)
-            grad_v_pix = torch.zeros_like(v_pix)
-            for b in range(ctx.n_bands):
-                rows, idx_b = _edge_grad_band_rows(v_pix, vi, padded, b * hb, hb, h, ctx.max_dp_dr, ctx.impl)
-                grad_v_pix += _pixels_to_verts(rows, idx_b, vi, v_pix.shape[1], ctx.impl)
+            for y0 in range(0, h, hb):
+                rows = slice(y0, y0 + hb + 1)  # the band and the next band's first row
+                grad_v_pix = edge_grad_to_verts(
+                    v_pix, vi, index_img[:, rows], img[:, :, rows], grad_output[:, :, rows], bary_img[:, :, rows],
+                    ctx.max_dp_dr, y0, h, out=grad_v_pix, impl=ctx.impl,
+                )
         grad_img = grad_output if ctx.needs_input_grad[3] else None
         return grad_v_pix, None, None, grad_img, None, None, None, None
 
@@ -128,9 +107,9 @@ def edge_grad_estimator_banded(
     impl: str = "auto",
 ) -> torch.Tensor:
     """:func:`~drtk_tpu_torch.ops.edge_grad.edge_grad_estimator` with a
-    row-banded backward: the same arguments and gradient, the CRD stencil
-    run over ``n_bands`` bands (the height must divide by it), each band's
-    ``bary x g`` rows reduced to faces by kernel B3 on the card.
+    row-banded backward: the same arguments and gradient, the backward run
+    over ``n_bands`` bands (the height must divide by it), one launch of
+    kernel E1 per band on the card, all into one accumulator.
 
     Returns ``img`` (float32 if it was f16/bf16).
     """

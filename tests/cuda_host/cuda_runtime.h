@@ -9,9 +9,12 @@
 // block). __shared__ arrays are static: one block runs at a time. The
 // __f*_rn and __d*_rn intrinsics are plain IEEE operations; the test
 // compiles with -ffp-contract=off, so each rounds on its own, as on the card.
+// atomicAdd on float and double is std::atomic_ref's fetch_add, atomic
+// across the block's threads, which run at once.
 #pragma once
 
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -54,6 +57,11 @@ inline double __ddiv_rn(double a, double b) { return a / b; }
 inline double __dsqrt_rn(double a) { return std::sqrt(a); }
 using std::max;
 using std::min;
+
+template <typename T>
+T atomicAdd(T* address, T val) {
+  return std::atomic_ref<T>(*address).fetch_add(val);
+}
 
 inline thread_local uint3 threadIdx;
 inline thread_local uint3 blockIdx;

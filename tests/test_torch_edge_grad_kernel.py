@@ -1,26 +1,40 @@
-"""Kernel E1's function, the edge_grad backward's CRD stencil, on the CPU.
+"""Kernel E1's function, the edge_grad backward, on the CPU.
 
-E1 (``drtk_tpu_torch/csrc/edge_grad.cu``) runs only on the card; on a CPU
-tensor :func:`~drtk_tpu_torch.ops.edge_grad.edge_grad_stencil` runs its
-plain version, ``_stencil_plain``, which takes exactly E1's arguments and
-has its two outputs: the image gradient (image mode) and the per-pixel
-``bary x g`` rows (rows mode). Here the plain version is held to the JAX
-package on the same numpy inputs, and the dispatch to it: a CPU tensor
-never reaches the build. The card tests (``tests/test_torch_kernels.py``,
-``-m cuda``) hold E1 to this plain version; here, E1's own source,
-compiled for the host by g++ against a stand-in ``cuda_runtime.h``
-(``tests/cuda_host/``), is held to it too: the kernel's arithmetic and
-indexing, not the card's compiler.
+E1 (``drtk_tpu_torch/csrc/edge_grad.cu``) runs only on the card. On CPU
+tensors :func:`~drtk_tpu_torch.ops.edge_grad.edge_grad_to_verts` runs its
+plain version, ``_verts_plain`` (the stencil table, ``_stencil_plain``'s
+per-pixel ``bary x g`` rows, B3's plain scatter to faces, ``index_add_`` to
+vertices), and ``edge_grad_image`` runs ``_stencil_plain``'s image
+gradient. Here the plain versions are held to the JAX package on the same
+numpy inputs: the vertex gradient to the VJP of ``drtk_tpu.
+edge_grad_estimator`` (``_edge_grad_core_bwd``), a band with its halo row to
+JAX's tile backward reduced to vertices, the image to ``edge_grad_image``;
+and the dispatch: a CPU tensor never reaches the build. The card tests
+(``tests/test_torch_kernels.py``, ``-m cuda``) hold E1 to its plain
+version; here E1's own source, compiled for the host by g++ against a
+stand-in ``cuda_runtime.h`` (``tests/cuda_host/``), is held to it too: the
+kernel's arithmetic, indexing and atomics, not the card's compiler.
 
 Tolerances: float32, 1e-4 of the largest magnitude, the gradient contract
 of ``tests/test_torch_backward.py`` (XLA contracts products into FMAs on
-the CPU, the port does not; the scenes are in general position, so that no
+the CPU, the port does not, and JAX's B3 sums float32 rows through a
+three-term bf16 split; the scenes are in general position, so that no
 pixel centre sits on a coverage boundary where that rounding decides the
-class). float64: 1e-10. Rows mode is the product of bary and image mode,
-bit for bit. The host build of E1 against the plain version: the same
-nonzero pixels, values within 1e-6 of the largest magnitude (the channel
-sum and the norms may round in another order than torch's), 1e-12 in
-float64.
+class). float64: 1e-10. Out-of-range faces and indices are the port's own
+rule (clamped, as every gather of the port clamps them; JAX's scatters drop
+them), so they are held to the plain version, not to JAX. The host build
+of E1 against the plain version: image mode, the same nonzero pixels and
+values within 1e-6 of the largest magnitude (the channel sum may round in
+another order than torch's); verts mode, values within 1e-6 of the largest
+summed magnitude, the largest sum of the terms' magnitudes at a vertex
+(the kernel's atomics, in the order the threads run, and the plain
+version's two ``index_add_`` passes, each pixel's rows into a face row and
+the face rows into vertices, add the same terms in different orders; on
+the soup the vertex sums cancel 7-fold, and the float32 plain version is
+itself 1.2e-6 of the largest magnitude from float64, where the kernel is
+4.5e-7), not the nonzero vertices (a sum may cancel to exactly 0 in one
+order). float64: 1e-12. Bands added into one accumulator against the full
+frame: float64, 1e-12.
 """
 
 import ctypes
@@ -45,10 +59,10 @@ import drtk_tpu_torch as tt  # noqa: E402
 from drtk_tpu_torch import _build  # noqa: E402
 from drtk_tpu_torch.interop import to_numpy  # noqa: E402
 from drtk_tpu_torch.ops import edge_grad as eg  # noqa: E402
-from drtk_tpu_torch.ops.rasterize import broadcast_vi  # noqa: E402
-from drtk_tpu_torch.parallel import banded  # noqa: E402
 from tests.test_torch_backward import _assert_grad_close, _t  # noqa: E402
-from tests.test_torch_kernels import E1_SCENES, _e1_scene, _one_torch_thread  # noqa: E402,F401
+from tests.test_torch_kernels import (  # noqa: E402,F401
+    E1_SCENES, E1_VIEWPORTS, _e1_image_plain, _e1_scene, _e1_viewport, _one_torch_thread,
+)
 from tests.test_torch_ops import _soup  # noqa: E402
 
 SCENES = {
@@ -75,18 +89,14 @@ def _case(scene, dtype=np.float32, channels=4):
     return v, s["vi"], idx, np.array(bary), img, g
 
 
-def _table(v, vi):
-    v = _t(v)
-    return eg._stencil_table(v, broadcast_vi(_t(vi), v.shape[0]))
-
-
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("max_dp_dr", [1e4, 0.0])
 @pytest.mark.parametrize("scene", list(SCENES))
 def test_plain_image_mode_matches_jax(scene, max_dp_dr, dtype):
-    """Image mode against ``drtk_tpu.ops.edge_grad.edge_grad_image``."""
+    """Image mode (``edge_grad_image`` on CPU tensors) against
+    ``drtk_tpu.ops.edge_grad.edge_grad_image``."""
     v, vi, idx, _, img, g = _case(scene, dtype)
-    got = eg.edge_grad_stencil(_table(v, vi), _t(idx), _t(img), _t(g), None, max_dp_dr)
+    got = tt.edge_grad_image(_t(v), _t(vi), _t(img), _t(idx), _t(g), max_dp_dr)
     want = jax.jit(lambda *a: jax_edge_grad_image(*a, max_dp_dr))(
         jnp.asarray(v), jnp.asarray(vi), jnp.asarray(img), jnp.asarray(idx), jnp.asarray(g))
     want = np.asarray(want)
@@ -94,104 +104,82 @@ def test_plain_image_mode_matches_jax(scene, max_dp_dr, dtype):
     _assert_grad_close(to_numpy(got), want, rel=1e-4 if dtype == np.float32 else 1e-10)
 
 
-def _halo_tiles(h):
-    """(y0, rows) of 4 bands of h/4 rows, each with its halo row below."""
-    hb = h // 4
+VERTS_SCENES = ["grid_offset", "intersecting", "near_miss", "batch2_vi"]
+
+
+def _verts_case(scene, dtype):
+    """A scene of ``_e1_scene`` (index, bary, image and cotangent from the
+    port and a seed) as numpy arrays in ``dtype``, for both packages."""
+    v, vi, idx, img, g, bary = (to_numpy(t) for t in _e1_scene(scene))
+    return v.astype(dtype), vi, idx, img.astype(dtype), g.astype(dtype), bary.astype(dtype)
+
+
+def _jax_verts(v, vi, idx, img, g, bary, max_dp_dr):
+    """The JAX package's vertex gradient: the VJP of ``edge_grad_estimator``
+    to ``v`` at the cotangent ``g``."""
+
+    def pull(v, gg):
+        _, vjp = jax.vjp(lambda v: dt.edge_grad_estimator(
+            v, jnp.asarray(vi), jnp.asarray(bary), jnp.asarray(img), jnp.asarray(idx), max_dp_dr=max_dp_dr), v)
+        return vjp(gg)[0]
+
+    return np.asarray(jax.jit(pull)(jnp.asarray(v), jnp.asarray(g)))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("max_dp_dr", [1e4, 0.0])
+@pytest.mark.parametrize("scene", VERTS_SCENES)
+def test_plain_verts_match_jax(scene, max_dp_dr, dtype):
+    """``edge_grad_to_verts`` on CPU tensors against the JAX package's
+    vertex gradient: a textured-like grid (moved off the pixel centres),
+    two triangles whose depths cross (the intersection class),
+    the near-miss scene and a batch of 2 with a face list each."""
+    v, vi, idx, img, g, bary = _verts_case(scene, dtype)
+    got = eg.edge_grad_to_verts(_t(v), _t(vi), _t(idx), _t(img), _t(g), _t(bary), max_dp_dr)
+    want = _jax_verts(v, vi, idx, img, g, bary, max_dp_dr)
+    assert got.dtype == _t(v).dtype and np.abs(want).max() > 0
+    _assert_grad_close(to_numpy(got), want, rel=1e-4 if dtype == np.float32 else 1e-10)
+
+
+def _bands(h, n_bands=4):
+    """(y0, rows) of ``n_bands`` bands, each with the next band's first row
+    (none below the last band), as the banded backward slices them."""
+    hb = h // n_bands
     return [(y0, slice(y0, y0 + hb + 1)) for y0 in range(0, h, hb)]
 
 
+def _image_grad_to_verts(gv, idx, bary, vi, num_v):
+    """An image gradient [N, 3, H, W] reduced to [N, V, 3] in float64 as
+    ``_edge_grad_core_bwd`` reduces it: bary x g at foreground pixels, to
+    the pixel's face, to its vertices."""
+    out = np.zeros((idx.shape[0], num_v, 3))
+    for b in range(idx.shape[0]):
+        fg = idx[b] >= 0
+        f = np.minimum(idx[b][fg], vi.shape[1] - 1)
+        g = np.moveaxis(gv[b], 0, -1)[fg].astype(np.float64)
+        w = np.moveaxis(bary[b], 0, -1)[fg].astype(np.float64)
+        for k in range(3):
+            np.add.at(out[b], vi[b][f, k], w[:, k : k + 1] * g)
+    return out
+
+
 @pytest.mark.parametrize("band", range(4))
-def test_plain_rows_mode_on_a_row_tile_matches_jax(band):
-    """Rows mode on a band and its halo row (``y_offset``, ``full_height``;
-    the frame padded with one background row, as the banded path pads it)
-    against bary times JAX's ``_edge_grad_backward`` of the same tile."""
+def test_plain_verts_on_a_band_match_jax(band):
+    """A band and its halo row (``y_offset``, ``full_height``) through
+    ``edge_grad_to_verts`` against JAX's tile backward
+    (``_edge_grad_backward(..., y_offset, full_height)``) of the same rows,
+    reduced to vertices."""
     v, vi, idx, bary, img, g = _case("soup_batch2")
+    vib = np.broadcast_to(vi, (v.shape[0],) + vi.shape)
     h = idx.shape[1]
-    pad = ((0, 0), (0, 0), (0, 1), (0, 0))
-    img_p, g_p, bary_p = np.pad(img, pad), np.pad(g, pad), np.pad(bary, pad)
-    idx_p = np.pad(idx, ((0, 0), (0, 1), (0, 0)), constant_values=-1)
-    y0, rows = _halo_tiles(h)[band]
-    img_b, g_b, bary_b, idx_b = img_p[:, :, rows], g_p[:, :, rows], bary_p[:, :, rows], idx_p[:, rows]
-    got = eg.edge_grad_stencil(_table(v, vi), _t(idx_b), _t(img_b), _t(g_b), _t(bary_b), 1e4, y0, h)
-    vib = to_numpy(broadcast_vi(_t(vi), v.shape[0]))
+    y0, rows = _bands(h)[band]
+    img_b, g_b, bary_b, idx_b = img[:, :, rows], g[:, :, rows], bary[:, :, rows], idx[:, rows]
+    got = eg.edge_grad_to_verts(_t(v), _t(vib), _t(idx_b), _t(img_b), _t(g_b), _t(bary_b), 1e4, y0, h)
     gv = jax.jit(jax_edge_grad_backward, static_argnums=(5, 6, 7))(
         jnp.asarray(v), jnp.asarray(vib), jnp.asarray(img_b), jnp.asarray(idx_b), jnp.asarray(g_b), 1e4, y0, h)
-    gv = np.moveaxis(np.asarray(gv), 1, -1)  # [N, hb+1, W, 3(coord)]
-    want = (np.moveaxis(bary_b, 1, -1)[..., :, None] * gv[..., None, :]).reshape(got.shape)
+    want = _image_grad_to_verts(np.asarray(gv), idx_b, bary_b, vib, v.shape[1])
     assert np.abs(want).max() > 0
     _assert_grad_close(to_numpy(got), want)
-
-
-@pytest.mark.parametrize("tile", [False, True])
-@pytest.mark.parametrize("max_dp_dr", [1e4, 0.0])
-@pytest.mark.parametrize("scene", list(SCENES))
-def test_rows_mode_is_bary_times_image_mode(scene, max_dp_dr, tile):
-    """Rows mode equals bary[k] * image[j] at 3k + j, bit for bit, on the
-    full frame and on the frame's last band of 24 rows with a background
-    halo row, as the banded path pads it (the stencil centres on the frame's
-    last row dropped, so the halo row gets nothing)."""
-    v, vi, idx, bary, img, g = _case(scene)
-    args = [_t(idx), _t(img), _t(g), _t(bary)]
-    y0, frame_h = 0, -1
-    if tile:
-        h = idx.shape[1]
-        y0, frame_h = h - 24, h
-        args = [banded._pad_rows(a[:, y0:], -1) if a.ndim == 3 else banded._pad_rows(a[:, :, y0:]) for a in args]
-    table = _table(v, vi)
-    rows = eg.edge_grad_stencil(table, *args, max_dp_dr, y0, frame_h)
-    image = eg.edge_grad_stencil(table, *args[:3], None, max_dp_dr, y0, frame_h)
-    n, _, h, w = image.shape
-    want = (args[3].movedim(1, -1)[..., :, None] * image.movedim(1, -1)[..., None, :]).reshape(n, h, w, 9)
-    assert rows.shape == (n, h, w, 9) and bool((rows != 0).any())
-    assert torch.equal(rows, want)
-    if tile:
-        assert not image[:, :, -1].any()
-
-
-def test_cpu_tensors_never_reach_the_build(monkeypatch):
-    """With CPU tensors and impl="auto", the backward (full frame, banded)
-    and edge_grad_image run the plain version: nothing is built or looked
-    up, and E1's count stays 0."""
-
-    def no_build(*args, **kwargs):
-        raise AssertionError("a CPU tensor reached the kernel build")
-
-    monkeypatch.setattr(_build, "entry", no_build)
-    monkeypatch.setattr(_build, "load", no_build)
-    v, vi, idx, bary, img, g = (_t(a) for a in _case("soup_batch2"))
-    tt.reset_kernel_launch_counts()
-    for estimator, extra in ((tt.edge_grad_estimator, ()), (tt.edge_grad_estimator_banded, (4,))):
-        vv = v.clone().requires_grad_()
-        (grad_v,) = torch.autograd.grad(estimator(vv, vi, bary, img, idx, *extra), vv, g)
-        assert bool((grad_v != 0).any())
-    assert bool((tt.edge_grad_image(v, vi, img, idx, g) != 0).any())
-    assert set(tt.kernel_launch_counts().values()) == {0}
-
-
-def test_wrapper_refuses_what_e1_does_not_take():
-    """Outside the card, the wrapper refuses before any build: a CPU
-    tensor, an unknown impl, a dtype without a kernel, an int64 index."""
-    table = torch.zeros((1, 4, 16))
-    idx = torch.zeros((1, 3, 5), dtype=torch.int32)
-    img = torch.zeros((1, 2, 3, 5))
-    with pytest.raises(ValueError, match="CUDA device"):
-        eg._stencil_cuda(table, idx, img, img, None, 1e4)
-    with pytest.raises(ValueError, match="impl"):
-        eg.edge_grad_stencil(table, idx, img, img, None, 1e4, impl="fast")
-    with pytest.raises(TypeError, match="no kernel"):
-        eg._stencil_cuda(table.half(), idx, img, img, None, 1e4)
-    with pytest.raises(TypeError, match="int32"):
-        eg._stencil_cuda(table, idx.long(), img, img, None, 1e4)
-
-
-def test_build_lists_e1_and_binds_its_entries():
-    """``_build.SOURCES`` names csrc/edge_grad.cu, which defines every C
-    entry the wrapper binds (and the error string ``_build.check`` reads)."""
-    assert "edge_grad" in _build.SOURCES
-    src = (_build.CSRC / "edge_grad.cu").read_text()
-    for name in [*eg._C_ENTRY.values(), "drtk_cuda_error_string"]:
-        assert f" {name}(" in src, name
-    assert set(eg._C_ENTRY) == {torch.float32, torch.float64}
 
 
 @pytest.fixture(scope="module")
@@ -221,29 +209,111 @@ def e1_on_the_host(tmp_path_factory):
     return fns
 
 
-@pytest.mark.parametrize("viewport", [False, True])
+@pytest.mark.parametrize("impl", ["plain", "host kernel"])
+@pytest.mark.parametrize("max_dp_dr", [1e4, 0.0])
+@pytest.mark.parametrize("scene", list(SCENES))
+def test_bands_add_into_one_accumulator(e1_on_the_host, scene, max_dp_dr, impl):
+    """Four bands, each with its halo row, added into one accumulator (the
+    plain version through ``edge_grad_to_verts(..., out=)``, or E1's source
+    on the host through the wrapper's launch code): the full frame's vertex
+    gradient, in float64 to 1e-12."""
+    v, vi, idx, bary, img, g = (_t(a) for a in _case(scene, np.float64))
+    vi = vi.expand(v.shape[0], -1, -1) if vi.ndim == 2 else vi
+    h = idx.shape[1]
+    acc = None
+    for y0, rows in _bands(h):
+        args = (v, vi, idx[:, rows], img[:, :, rows], g[:, :, rows], bary[:, :, rows], max_dp_dr, y0, h)
+        if impl == "plain":
+            out = eg.edge_grad_to_verts(*args, out=acc)
+        else:
+            out = eg._launch(lambda: e1_on_the_host[torch.float64], None, *args, acc)
+        assert acc is None or out is acc
+        acc = out
+    want = eg.edge_grad_to_verts(v, vi, idx, img, g, bary, max_dp_dr)
+    assert bool((want != 0).any())
+    assert (acc - want).abs().max() <= 1e-12 * want.abs().max()
+
+
+def test_cpu_tensors_never_reach_the_build(monkeypatch):
+    """With CPU tensors and impl="auto", the backward (full frame, banded)
+    and edge_grad_image run the plain version: nothing is built or looked
+    up, and E1's count stays 0."""
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached the kernel build")
+
+    monkeypatch.setattr(_build, "entry", no_build)
+    monkeypatch.setattr(_build, "load", no_build)
+    v, vi, idx, bary, img, g = (_t(a) for a in _case("soup_batch2"))
+    tt.reset_kernel_launch_counts()
+    for estimator, extra in ((tt.edge_grad_estimator, ()), (tt.edge_grad_estimator_banded, (4,))):
+        vv = v.clone().requires_grad_()
+        (grad_v,) = torch.autograd.grad(estimator(vv, vi, bary, img, idx, *extra), vv, g)
+        assert bool((grad_v != 0).any())
+    assert bool((tt.edge_grad_image(v, vi, img, idx, g) != 0).any())
+    assert set(tt.kernel_launch_counts().values()) == {0}
+
+
+def test_wrapper_refuses_what_e1_does_not_take():
+    """Outside the card, the wrappers refuse before any build: a CPU
+    tensor, an unknown impl, a dtype without a kernel, an int64 index or
+    vi."""
+    v = torch.zeros((1, 3, 3))
+    vi = torch.zeros((1, 1, 3), dtype=torch.int32)
+    idx = torch.zeros((1, 3, 5), dtype=torch.int32)
+    img = torch.zeros((1, 2, 3, 5))
+    bary = torch.zeros((1, 3, 3, 5))
+    with pytest.raises(ValueError, match="CUDA device"):
+        eg._e1_cuda(v, vi, idx, img, img, bary, 1e4)
+    with pytest.raises(ValueError, match="impl"):
+        eg.edge_grad_to_verts(v, vi, idx, img, img, bary, 1e4, impl="fast")
+    with pytest.raises(ValueError, match="impl"):
+        tt.edge_grad_image(v, vi, img, idx, img, impl="fast")
+    with pytest.raises(TypeError, match="no kernel"):
+        eg._e1_cuda(v.half(), vi, idx, img, img, bary, 1e4)
+    with pytest.raises(TypeError, match="int32"):
+        eg._e1_cuda(v, vi, idx.long(), img, img, bary, 1e4)
+    with pytest.raises(TypeError, match="int32"):
+        eg._e1_cuda(v, vi.long(), idx, img, img, None, 1e4)
+
+
+def test_build_lists_e1_and_binds_its_entries():
+    """``_build.SOURCES`` names csrc/edge_grad.cu, which defines every C
+    entry the wrapper binds (and the error string ``_build.check`` reads)."""
+    assert "edge_grad" in _build.SOURCES
+    src = (_build.CSRC / "edge_grad.cu").read_text()
+    for name in [*eg._C_ENTRY.values(), "drtk_cuda_error_string"]:
+        assert f" {name}(" in src, name
+    assert set(eg._C_ENTRY) == {torch.float32, torch.float64}
+
+
+@pytest.mark.parametrize("mode", ["verts", "image"])
+@pytest.mark.parametrize("viewport", E1_VIEWPORTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("scene", E1_SCENES)
-def test_kernel_source_on_the_host_matches_plain(e1_on_the_host, scene, dtype, viewport):
-    """E1's source, run on the host through the wrapper's own launch code,
-    against the plain version on the card tests' scenes, in both modes and
-    at max_dp_dr 1e4 and 0; the viewport is the frame's last 24 rows and a
-    background halo row (strided slices of the padded frame)."""
-    table, idx, img, g, bary = _e1_scene(scene)
-    table, img, g, bary = (t.to(dtype) for t in (table, img, g, bary))
-    y0, frame_h = 0, -1
-    if viewport:
-        y0, frame_h = idx.shape[1] - 24, idx.shape[1]
-        img, g, bary, idx = banded._pad_frame(img, g, bary, idx)
-        idx, img, g, bary = idx[:, y0:], img[:, :, y0:], g[:, :, y0:], bary[:, :, y0:]
+def test_kernel_source_on_the_host_matches_plain(e1_on_the_host, scene, dtype, viewport, mode):
+    """E1's source, run on the host through the wrapper's launch code,
+    against the plain version on the card tests' scenes and viewports (the
+    frame; a band and its halo row; the last band), at max_dp_dr 1e4 and 0.
+    Verts mode adds into a fresh accumulator of zeros."""
+    v, vi, idx, img, g, bary = _e1_scene(scene)
+    v, img, g, bary = (t.to(dtype) for t in (v, img, g, bary))
+    y0, frame_h, idx, img, g, bary = _e1_viewport(viewport, idx, img, g, bary)
+    limit = 1e-12 if dtype == torch.float64 else 1e-6
     for max_dp_dr in (1e4, 0.0):
-        for rows in (bary, None):
-            args = (table, idx, img, g, rows, max_dp_dr, y0, frame_h)
-            got = eg._launch(lambda: e1_on_the_host[dtype], None, *args)
-            want = eg._stencil_plain(*args)
-            nonzero = (lambda t: (t != 0).any(1)) if rows is None else (lambda t: (t != 0).any(-1))
+        if mode == "verts":
+            args = (v, vi, idx, img, g, bary, max_dp_dr, y0, frame_h)
+            got = eg._launch(lambda: e1_on_the_host[dtype], None, *args, None)
+            want = eg._verts_plain(*args)
+            summed = eg._pixels_to_verts(eg._stencil_plain(eg._stencil_table(v, vi), *args[2:]).abs(), idx, vi,
+                                         v.shape[1], "plain")
+            assert got.shape == want.shape and got.dtype == dtype
+            assert (got - want).abs().max() <= limit * summed.max()
+        else:
+            got = eg._launch(lambda: e1_on_the_host[dtype], None, v, vi, idx, img, g, None, max_dp_dr, y0,
+                             frame_h, None)
+            want = _e1_image_plain(v, vi, idx, img, g, max_dp_dr, y0, frame_h)
             assert got.shape == want.shape
-            assert torch.equal(nonzero(got), nonzero(want))
-            limit = 1e-12 if dtype == torch.float64 else 1e-6
+            assert torch.equal((got != 0).any(1), (want != 0).any(1))
             assert (got - want).abs().max() <= limit * want.abs().max()
-            assert scene == "background" or bool((want != 0).any())
+        assert scene == "background" or bool((want != 0).any())

@@ -58,7 +58,6 @@ from drtk_tpu_torch.ops.row_gather import row_gather
 from drtk_tpu_torch.pipeline import fit_step, inverse8_step, render_textured
 from drtk_tpu_torch.ops import edge_grad as edge_grad_mod
 from drtk_tpu_torch.ops.edge_grad import _stencil_table
-from drtk_tpu_torch.parallel import banded
 from drtk_tpu_torch.pipeline import avatar4k_band, avatar4k_step
 from drtk_tpu_torch.scenes import (
     avatar4k_scene_arrays, entry_scene_arrays, inverse8_scene_arrays, make_scene_arrays, with_edge_flags,
@@ -1101,8 +1100,8 @@ def test_fit_step_kernels_match_plain(cuda_device):
     tt.reset_kernel_launch_counts()
     loss, grads = fit_step(v, vi, vt, tex, 128, 256)
     torch.cuda.synchronize()
-    assert tt.kernel_launch_counts() == {  # edge_grad's backward is one E1 launch, no B2
-        **NO_LAUNCHES, "B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 3, "B4 window_accum": 1,
+    assert tt.kernel_launch_counts() == {  # edge_grad's backward is one E1 launch, no B2 or B3
+        **NO_LAUNCHES, "B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 2, "B4 window_accum": 1,
         "E1 edge_grad": 1,
     }
     idx = tt.rasterize(v, vi, 128, 256)
@@ -1178,7 +1177,7 @@ def test_inverse8_step_kernels_match_plain(cuda_device):
     inverse8_step(p, torch.optim.Adam(p, lr=1e-3), s["vi"], s["vt"], cams, img_gt, 64, 64)
     torch.cuda.synchronize()
     assert tt.kernel_launch_counts() == {
-        **NO_LAUNCHES, "B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 2, "B4 window_accum": 1,
+        **NO_LAUNCHES, "B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 1, "B4 window_accum": 1,
         "E1 edge_grad": 1,
     }
     p_k, p_p = params(), params()
@@ -1195,16 +1194,30 @@ def test_inverse8_step_kernels_match_plain(cuda_device):
 
 
 def _e1_scene(scene):
-    """E1's inputs on the CPU: the stencil table, an index image, a seeded
-    4-channel image and cotangent, and bary. "grid" has pixel centres on
-    its diagonals; "soup" is a ragged 70 x 130 frame; "batch3" three soups;
-    "background" no face; "one_face" one triangle on background;
-    "clamped" a soup whose index reaches F + 20 (clamped to F - 1)."""
+    """E1's inputs on the CPU: vertices, per-batch faces, an index image, a
+    seeded 4-channel image and cotangent, and bary. "grid" has pixel
+    centres on its diagonals; "soup" is a ragged 70 x 130 frame; "batch3"
+    three soups; "background" no face; "one_face" one triangle on
+    background; "clamped" a soup whose index reaches F + 20 (clamped to
+    F - 1); "intersecting" two triangles whose depths cross; "vi_range" a
+    soup whose faces name vertices past V and below 0 (clamped into
+    [0, V - 1], as every gather of the port clamps them); "batch2_vi" two
+    soups with a face list each; "near_miss" edges at a pixel diamond's
+    reach, to within ulps; "grid_offset" the grid moved off the pixel
+    centres (general position, for comparisons with JAX on the CPU, whose
+    XLA contracts products into FMAs)."""
     make, h, w = {
         "grid": SCENES["grid"], "soup": SCENES["nonaligned"], "batch3": SCENES["soup_batch3"],
-        "background": SCENES["nonaligned"], "clamped": SCENES["nonaligned"],
+        "background": SCENES["nonaligned"], "clamped": SCENES["nonaligned"], "vi_range": SCENES["nonaligned"],
         "one_face": (lambda: {"v": np.float32([[[10.3, 5.2, 4.0], [100.7, 20.1, 5.0], [40.2, 60.6, 6.0]]]),
                               "vi": np.int32([[0, 1, 2]])}, 70, 130),
+        "intersecting": (lambda: {"v": np.float32([[[10.3, 8.1, 3.0], [118.7, 12.2, 7.0], [14.4, 62.9, 3.2],
+                                                    [8.2, 20.6, 7.1], [121.5, 30.3, 2.9], [60.7, 66.1, 5.0]]]),
+                                  "vi": np.int32([[0, 1, 2], [3, 4, 5]])}, 70, 130),
+        "batch2_vi": (lambda: {**_soup(2, 48, 64, 70, 130, 5),
+                               "vi": np.random.RandomState(6).randint(0, 48, (2, 64, 3)).astype(np.int32)}, 70, 130),
+        "near_miss": (lambda: chip_smoke.near_miss_scene(64, 128), 64, 128),
+        "grid_offset": (lambda: _offset(make_scene_arrays(128, 256, 9)), 128, 256),
     }[scene]
     s = make()
     v = torch.from_numpy(s["v"])
@@ -1215,76 +1228,186 @@ def _e1_scene(scene):
         idx = torch.full_like(idx, -1)
     if scene == "clamped":
         idx = torch.where(idx % 5 == 1, idx + vi.shape[1] + 20, idx)
+    if scene == "vi_range":
+        vi = vi.clone()
+        vi[:, ::3, 0] += v.shape[1] + 7
+        vi[:, 1::4, 2] = -3
     gen = torch.Generator().manual_seed(3)
     img = torch.rand((v.shape[0], 4, h, w), generator=gen)
     g = torch.randn((v.shape[0], 4, h, w), generator=gen)
-    return _stencil_table(v, vi), idx, img, g, bary
+    return v, vi, idx, img, g, bary
 
 
-E1_SCENES = ["grid", "soup", "batch3", "background", "one_face", "clamped"]
+def _offset(s):
+    """The scene moved by a fraction of a pixel in x and y."""
+    return {**s, "v": (s["v"] + np.float32([0.173, 0.291, 0.0])).astype(np.float32)}
+
+
+E1_SCENES = ["grid", "soup", "batch3", "background", "one_face", "clamped", "intersecting", "vi_range",
+             "batch2_vi", "near_miss"]
+E1_VIEWPORTS = ["frame", "channels_last", "band", "last_band"]
+
+
+def _e1_viewport(viewport, idx, img, g, bary):
+    """(y_offset, full_height, idx, img, g, bary) of a viewport of the frame:
+    the whole frame (-1: no row tile); "channels_last", the whole frame with
+    img, g and bary in channels-last layout (as a shading pipeline's
+    products come out); "band", the 24 rows from H/3 and the halo row below
+    them (the next band's first row), as the banded path slices a band;
+    "last_band", the last 24 rows, with no halo row (the frame's last row
+    holds no stencil centre). Strided slices of the frame."""
+    h = idx.shape[1]
+    if viewport in ("frame", "channels_last"):
+        if viewport == "channels_last":
+            img, g, bary = (t.contiguous(memory_format=torch.channels_last) for t in (img, g, bary))
+        return 0, -1, idx, img, g, bary
+    y0 = h // 3 if viewport == "band" else h - 24
+    rows = slice(y0, y0 + 25)
+    return y0, h, idx[:, rows], img[:, :, rows], g[:, :, rows], bary[:, :, rows]
+
+
+def _e1_image_plain(v, vi, idx, img, g, max_dp_dr, y0, frame_h):
+    """E1's image mode in plain PyTorch."""
+    return edge_grad_mod._stencil_plain(_stencil_table(v, vi), idx, img, g, None, max_dp_dr, y0, frame_h)
+
+
+def _assert_verts_close(got, want, rel):
+    """Values within ``rel`` of the largest magnitude. (Not the nonzero
+    vertices: a vertex's sum may cancel to exactly 0 in one order of the
+    atomics and not in another, within the limit.)"""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert (got - want).abs().max() <= rel * want.abs().max()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["rows", "image"])
+@pytest.mark.parametrize("mode", ["verts", "image"])
 @pytest.mark.parametrize("max_dp_dr", [1e4, 0.0])
-@pytest.mark.parametrize("viewport", [False, True])
+@pytest.mark.parametrize("viewport", E1_VIEWPORTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("scene", E1_SCENES)
 def test_edge_grad_kernel_matches_plain(cuda_device, scene, dtype, viewport, max_dp_dr, mode):
-    """E1 against its plain version on the card: the same nonzero pixels,
-    values within 1e-5 (f32) or 1e-12 (f64) of the largest magnitude. The
-    viewport is the frame's last 24 rows and a background halo row, as the
-    banded path passes its last band (strided slices of the padded frame,
-    stencil centres on the frame's last row dropped)."""
-    table, idx, img, g, bary = (t.to(cuda_device) for t in _e1_scene(scene))
-    table, img, g, bary = (t.to(dtype) for t in (table, img, g, bary))
-    y0, frame_h = 0, -1
-    if viewport:
-        h = idx.shape[1]
-        y0, frame_h = h - 24, h
-        img, g, bary, idx = banded._pad_frame(img, g, bary, idx)
-        idx, img, g, bary = idx[:, y0:], img[:, :, y0:], g[:, :, y0:], bary[:, :, y0:]
-    args = (table, idx, img, g, bary if mode == "rows" else None, max_dp_dr, y0, frame_h)
-    before = tt.kernel_launch_counts()["E1 edge_grad"]
-    got = edge_grad_mod.edge_grad_stencil(*args)
-    assert tt.kernel_launch_counts()["E1 edge_grad"] == before + 1
-    want = edge_grad_mod.edge_grad_stencil(*args, impl="plain")
-    torch.cuda.synchronize()
-    assert got.shape == want.shape and got.dtype == dtype
-    nonzero = (lambda t: (t != 0).any(1)) if mode == "image" else (lambda t: (t != 0).any(-1))
-    assert torch.equal(nonzero(got), nonzero(want))
+    """E1 against its plain version on the card, one launch each. Verts
+    mode: values within 1e-5 (f32) or 1e-12 (f64) of the largest magnitude
+    (the atomics add in another order than the plain version's two
+    index_add_ passes). Image mode: the same nonzero pixels, values within
+    the same limits."""
+    v, vi, idx, img, g, bary = (t.to(cuda_device) for t in _e1_scene(scene))
+    v, img, g, bary = (t.to(dtype) for t in (v, img, g, bary))
+    y0, frame_h, idx, img, g, bary = _e1_viewport(viewport, idx, img, g, bary)
     limit = 1e-12 if dtype == torch.float64 else 1e-5
-    assert (got - want).abs().max() <= limit * want.abs().max()
-    if scene not in ("background",):
+    before = tt.kernel_launch_counts()["E1 edge_grad"]
+    if mode == "verts":
+        got = edge_grad_mod.edge_grad_to_verts(v, vi, idx, img, g, bary, max_dp_dr, y0, frame_h)
+        assert tt.kernel_launch_counts()["E1 edge_grad"] == before + 1
+        want = edge_grad_mod.edge_grad_to_verts(v, vi, idx, img, g, bary, max_dp_dr, y0, frame_h, impl="plain")
+        torch.cuda.synchronize()
+        _assert_verts_close(got, want, limit)
+    else:
+        got = edge_grad_mod._e1_cuda(v, vi, idx, img, g, None, max_dp_dr, y0, frame_h)
+        assert tt.kernel_launch_counts()["E1 edge_grad"] == before + 1
+        want = _e1_image_plain(v, vi, idx, img, g, max_dp_dr, y0, frame_h)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == dtype
+        assert torch.equal((got != 0).any(1), (want != 0).any(1))
+        assert (got - want).abs().max() <= limit * want.abs().max()
+    if scene != "background":
         assert bool((want != 0).any())
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_edge_grad_bands_add_into_one_accumulator(cuda_device, dtype):
+    """Two bands of a frame (the first with its halo row) added by E1 into
+    one accumulator, which the wrapper zeroes once: the full frame's vertex
+    gradient, one launch a band."""
+    v, vi, idx, img, g, bary = (t.to(cuda_device) for t in _e1_scene("soup"))
+    v, img, g, bary = (t.to(dtype) for t in (v, img, g, bary))
+    h, hb = idx.shape[1], idx.shape[1] // 2
+    tt.reset_kernel_launch_counts()
+    acc = None
+    for y0 in (0, hb):
+        rows = slice(y0, y0 + hb + 1)
+        out = edge_grad_mod.edge_grad_to_verts(v, vi, idx[:, rows], img[:, :, rows], g[:, :, rows],
+                                               bary[:, :, rows], 1e4, y0, h, out=acc)
+        assert acc is None or out is acc
+        acc = out
+    assert tt.kernel_launch_counts() == {**NO_LAUNCHES, "E1 edge_grad": 2}
+    want = edge_grad_mod.edge_grad_to_verts(v, vi, idx, img, g, bary, 1e4, impl="plain")
+    torch.cuda.synchronize()
+    _assert_verts_close(acc, want, 1e-12 if dtype == torch.float64 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_edge_grad_kernel_under_contention(cuda_device, dtype):
+    """The entry scene (128 large triangles at 256^2): along a silhouette
+    the 32 lanes of a warp add into the same 9 addresses. The result is the
+    plain version's."""
+    s = entry_scene_arrays(h=256, w=256)
+    v = torch.from_numpy(s["v"]).to(cuda_device, dtype)
+    vi = broadcast_vi(torch.from_numpy(s["vi"]).to(cuda_device), 1)
+    idx = tt.rasterize(v.float(), vi, 256, 256)
+    _, bary = tt.render(v, vi, idx)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    img = torch.rand((1, 3, 256, 256), generator=gen, device=cuda_device, dtype=dtype)
+    g = torch.randn((1, 3, 256, 256), generator=gen, device=cuda_device, dtype=dtype)
+    got = edge_grad_mod.edge_grad_to_verts(v, vi, idx, img, g, bary, 1e4)
+    want = edge_grad_mod.edge_grad_to_verts(v, vi, idx, img, g, bary, 1e4, impl="plain")
+    torch.cuda.synchronize()
+    assert bool((want != 0).any())
+    _assert_verts_close(got, want, 1e-12 if dtype == torch.float64 else 1e-5)
+
+
+@pytest.mark.cuda
 def test_edge_grad_kernel_has_no_fallback(cuda_device, monkeypatch):
-    """A CUDA tensor never takes the plain stencil: when the build fails,
+    """A CUDA tensor never takes the plain version: when the build fails,
     the backward raises."""
 
     def failed_build(*args, **kwargs):
         raise RuntimeError("nvcc failed for csrc/edge_grad.cu")
 
-    table, idx, img, g, bary = (t.to(cuda_device) for t in _e1_scene("soup"))
+    v, vi, idx, img, g, bary = (t.to(cuda_device) for t in _e1_scene("soup"))
     monkeypatch.setattr(edge_grad_mod._build, "entry", failed_build)
     with pytest.raises(RuntimeError, match="nvcc failed"):
-        edge_grad_mod.edge_grad_stencil(table, idx, img, g, bary, 1e4)
+        edge_grad_mod.edge_grad_to_verts(v, vi, idx, img, g, bary, 1e4)
+
+
+@pytest.mark.cuda
+def test_edge_grad_wrapper_refuses_on_the_card(cuda_device):
+    """E1's wrapper refuses, before any launch, what the kernel does not
+    take: CPU and CUDA tensors mixed, an int64 index, an accumulator of
+    another shape."""
+    v, vi, idx, img, g, bary = (t.to(cuda_device) for t in _e1_scene("soup"))
+    before = tt.kernel_launch_counts()["E1 edge_grad"]
+    with pytest.raises(ValueError, match="one CUDA device"):
+        edge_grad_mod.edge_grad_to_verts(v, vi, idx, img.cpu(), g, bary, 1e4)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        edge_grad_mod.edge_grad_to_verts(v, vi, idx, img, g, bary, 1e4, out=torch.zeros_like(v).cpu())
+    with pytest.raises(TypeError, match="int32"):
+        edge_grad_mod.edge_grad_to_verts(v, vi, idx.long(), img, g, bary, 1e4)
+    with pytest.raises(ValueError, match="out must be"):
+        edge_grad_mod.edge_grad_to_verts(v, vi, idx, img, g, bary, 1e4, out=torch.zeros_like(v[:, :-1]))
+    assert tt.kernel_launch_counts()["E1 edge_grad"] == before
 
 
 @pytest.mark.cuda
 def test_edge_grad_kernel_raises_past_32_bit_offsets(cuda_device):
-    """Rows of 9 values for 2**28 pixels pass 2**31 within a batch: refused
-    before anything is allocated or launched."""
-    table = torch.zeros((1, 4, 16), device=cuda_device)
-    big_idx = torch.zeros((), dtype=torch.int32, device=cuda_device).expand(1, 2**14, 2**14)
-    big = torch.zeros((), device=cuda_device).expand(1, 1, 2**14, 2**14)
+    """Past 2**31 pixels within a batch or 65535 batches: refused before
+    anything is allocated or launched (stride-0 views stand in for the
+    tensors)."""
+    v = torch.zeros((1, 3, 3), device=cuda_device)
+    vi = torch.zeros((1, 1, 3), dtype=torch.int32, device=cuda_device)
+    big_idx = torch.zeros((), dtype=torch.int32, device=cuda_device).expand(1, 2**16, 2**15)
+    big = torch.zeros((), device=cuda_device).expand(1, 3, 2**16, 2**15)
+    allocated = torch.cuda.memory_allocated(cuda_device)
     with pytest.raises(ValueError, match="32-bit"):
-        edge_grad_mod.edge_grad_stencil(table, big_idx, big, big, big.expand(1, 3, -1, -1), 1e4)
+        edge_grad_mod.edge_grad_to_verts(v, vi, big_idx, big, big, big, 1e4)
+    assert torch.cuda.memory_allocated(cuda_device) == allocated
     small = torch.zeros((2**16, 1, 2, 2), device=cuda_device)
     with pytest.raises(ValueError, match="65535"):
-        edge_grad_mod.edge_grad_stencil(table.expand(2**16, -1, -1), small[:, 0].int(), small, small, None, 1e4)
+        edge_grad_mod.edge_grad_to_verts(v.expand(2**16, -1, -1), vi.expand(2**16, -1, -1), small[:, 0].int(),
+                                         small, small, small.expand(-1, 3, -1, -1), 1e4)
+
 
 def test_window_accumulate_refuses_2_31_taps():
     """B4's tap offsets are 32-bit: the wrapper refuses 2**31 taps per batch
@@ -1349,15 +1472,20 @@ def test_b4_matches_plain_on_a_mipmap_band_backward(avatar4k_frame, monkeypatch)
 
 @pytest.mark.cuda
 def test_b3_matches_plain_on_a_banded_edge_grad_band(avatar4k_frame):
-    """The bary x g rows of one band of the banded edge_grad (64 rows and
-    its halo row of the 4096^2 frame), K = 9, against the plain scatter."""
+    """The bary x g rows of one band of the edge_grad backward (64 rows and
+    its halo row of the 4096^2 frame, from the plain stencil; no path gives
+    B3 these rows since E1 reduces them itself), K = 9, against the plain
+    scatter: a check of B3 alone."""
     s, idx, bary = avatar4k_frame
     y0, hb = AV_BAND
     gen = torch.Generator(device="cuda").manual_seed(1)
     img = torch.rand((1, 3, 4096, 4096), generator=gen, device="cuda")
     g = torch.randn((1, 3, 4096, 4096), generator=gen, device="cuda")
     vib = broadcast_vi(s["vi"], 1)
-    rows, idx_b = banded._edge_grad_band_rows(s["v"], vib, banded._pad_frame(img, g, bary, idx), y0, hb, 4096, 1e4)
+    rows_b = slice(y0, y0 + hb + 1)
+    idx_b = idx[:, rows_b]
+    rows = edge_grad_mod._stencil_plain(_stencil_table(s["v"], vib), idx_b, img[:, :, rows_b], g[:, :, rows_b],
+                                        bary[:, :, rows_b], 1e4, y0, 4096)
     assert rows.shape == (1, hb + 1, 4096, 9) and bool((rows != 0).any())
     f_cnt = vib.shape[1]
     got = segment_rows.scatter_rows_to_faces(rows, idx_b, f_cnt)
@@ -1403,7 +1531,7 @@ def test_avatar4k_step_on_the_card_matches_cpu(cuda_device):
         if dev == "cuda":
             torch.cuda.synchronize()
             assert tt.kernel_launch_counts() == {
-                **NO_LAUNCHES, "B1 rasterize": 8, "B2 gather_rows": 24, "B3 scatter_rows": 8, "B4 window_accum": 4,
+                **NO_LAUNCHES, "B1 rasterize": 8, "B2 gather_rows": 24, "B3 scatter_rows": 4, "B4 window_accum": 4,
                 "E1 edge_grad": 4,
             }
     (loss_c, grads_c), (loss_k, grads_k) = out["cpu"], out["cuda"]
