@@ -28,13 +28,12 @@ resolve (B1), its wireframe resolve (B5), the per-pixel face-row gather
 scatter, which is also grid_scatter's splat (B4), and edge_grad's whole
 backward (E1) run as hand-written kernels for Hopper (sm_90a), built with
 nvcc at first use; on CPU tensors their plain PyTorch versions run.
-Nothing is compiled when the package is imported.
+Nothing is compiled when the package is imported. :mod:`drtk_tpu_torch.tracing`
+records the ops' and steps' spans, and the collectives' bytes, while a
+caller has a tracer entered; it always counts the kernels' launches
+(:func:`kernel_launch_counts`).
 """
 
-from drtk_tpu_torch.ops import edge_grad as _edge_grad
-from drtk_tpu_torch.ops import rasterize_cuda as _rasterize_cuda
-from drtk_tpu_torch.ops import segment_rows as _segment_rows
-from drtk_tpu_torch.ops import window_accum as _window_accum
 from drtk_tpu_torch.ops.edge_grad import edge_grad_estimator, edge_grad_image
 from drtk_tpu_torch.ops.edge_grad_ref import edge_grad_estimator_ref
 from drtk_tpu_torch import utils
@@ -75,6 +74,7 @@ from drtk_tpu_torch.pipeline import (
 )
 from drtk_tpu_torch.screen_space_uv_derivative import screen_space_uv_derivative
 from drtk_tpu_torch.transform import transform, transform_with_v_cam
+from drtk_tpu_torch.tracing import kernel_launch_counts, reset_kernel_launch_counts
 
 __all__ = [
     "FilterOptions",
@@ -124,24 +124,3 @@ __all__ = [
 
 __version__ = "0.1.0"
 
-
-def kernel_launch_counts() -> dict[str, int]:
-    """Launches of each CUDA kernel since the last reset, by kernel."""
-    return {
-        "B1 rasterize": _rasterize_cuda.launches,
-        "B2 gather_rows": _segment_rows.launches,
-        "B3 scatter_rows": _segment_rows.scatter_launches,
-        "B4 window_accum": _window_accum.launches,
-        "B5 rasterize_lines": _rasterize_cuda.lines_launches,
-        "E1 edge_grad": _edge_grad.launches,
-    }
-
-
-def reset_kernel_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
-    _rasterize_cuda.launches = 0
-    _segment_rows.launches = 0
-    _segment_rows.scatter_launches = 0
-    _window_accum.launches = 0
-    _rasterize_cuda.lines_launches = 0
-    _edge_grad.launches = 0

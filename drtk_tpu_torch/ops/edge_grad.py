@@ -43,17 +43,13 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
-from drtk_tpu_torch import _build
+from drtk_tpu_torch import _build, tracing
 from drtk_tpu_torch.ops.math import autocast_f32, epsclamp, next_rank_rows
 from drtk_tpu_torch.ops.rasterize import broadcast_vi
 from drtk_tpu_torch.ops.render import _face_table, _pixel_grid, _pixels_to_verts
 from drtk_tpu_torch.ops.segment_rows import _gather_rows_plain
 
 __all__ = ["edge_grad_estimator", "edge_grad_image", "edge_grad_to_verts"]
-
-# Launches of kernel E1 since the last reset (see
-# drtk_tpu_torch.kernel_launch_counts).
-launches = 0
 
 
 def _safe_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -331,7 +327,6 @@ def _launch(entry, stream, v_pix, vi, index_img, img, grad_output, bary_img, max
     ``stream`` for tensors of one device whose types :func:`_e1_cuda`
     checked: the limits, the layouts E1 reads, the output and the launch
     count."""
-    global launches
     n, c, h, w = img.shape
     n_verts, f_cnt = v_pix.shape[1], vi.shape[1]
 
@@ -369,7 +364,7 @@ def _launch(entry, stream, v_pix, vi, index_img, img, grad_output, bary_img, max
         out.data_ptr(), ctypes.byref(shape), stream,
     )
     _build.check("edge_grad", err, "edge_grad kernel")
-    launches += 1
+    tracing.launched("E1 edge_grad")
     return out
 
 
@@ -454,13 +449,14 @@ class _EdgeGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_output):
         """Mirrors ``drtk_tpu/ops/edge_grad.py:288-318``."""
-        v_pix, vi, bary_img, img, index_img = ctx.saved_tensors
-        grad_v_pix = None
-        if ctx.needs_input_grad[0]:
-            grad_v_pix = edge_grad_to_verts(v_pix, vi, index_img, img, grad_output, bary_img, ctx.max_dp_dr,
-                                            impl=ctx.impl)
-        grad_img = grad_output if ctx.needs_input_grad[3] else None
-        return grad_v_pix, None, None, grad_img, None, None, None
+        with tracing.span("edge_grad_bwd"):
+            v_pix, vi, bary_img, img, index_img = ctx.saved_tensors
+            grad_v_pix = None
+            if ctx.needs_input_grad[0]:
+                grad_v_pix = edge_grad_to_verts(v_pix, vi, index_img, img, grad_output, bary_img, ctx.max_dp_dr,
+                                                impl=ctx.impl)
+            grad_img = grad_output if ctx.needs_input_grad[3] else None
+            return grad_v_pix, None, None, grad_img, None, None, None
 
 
 class _EdgeGradSharded(torch.autograd.Function):
@@ -478,18 +474,20 @@ class _EdgeGradSharded(torch.autograd.Function):
         background row), reduced to this rank's part of the vertex
         gradient; the sum over the group is the replicated input's (see
         :func:`~drtk_tpu_torch.ops.math.psum_cotangent`)."""
-        v_pix, vi, bary_img, img, index_img = ctx.saved_tensors
-        grad_v_pix = None
-        if ctx.needs_input_grad[0]:
-            grad_output = grad_output.contiguous()
-            block = (img, grad_output, bary_img, index_img)
-            firsts = [img[:, :, :1], grad_output[:, :, :1], bary_img[:, :, :1], index_img[:, :1]]
-            halo = next_rank_rows(firsts, (0, 0, 0, -1), ctx.group)
-            img_e, g_e, bary_e, idx_e = (torch.cat([b, h], dim=2 if b.ndim == 4 else 1) for b, h in zip(block, halo))
-            grad_v_pix = edge_grad_to_verts(v_pix, vi, idx_e, img_e, g_e, bary_e, ctx.max_dp_dr, ctx.y_offset,
-                                            ctx.full_height, impl=ctx.impl)
-        grad_img = grad_output if ctx.needs_input_grad[3] else None
-        return grad_v_pix, None, None, grad_img, None, None, None, None, None, None
+        with tracing.span("edge_grad_bwd"):
+            v_pix, vi, bary_img, img, index_img = ctx.saved_tensors
+            grad_v_pix = None
+            if ctx.needs_input_grad[0]:
+                grad_output = grad_output.contiguous()
+                block = (img, grad_output, bary_img, index_img)
+                firsts = [img[:, :, :1], grad_output[:, :, :1], bary_img[:, :, :1], index_img[:, :1]]
+                halo = next_rank_rows(firsts, (0, 0, 0, -1), ctx.group)
+                img_e, g_e, bary_e, idx_e = (torch.cat([b, h], dim=2 if b.ndim == 4 else 1)
+                                             for b, h in zip(block, halo))
+                grad_v_pix = edge_grad_to_verts(v_pix, vi, idx_e, img_e, g_e, bary_e, ctx.max_dp_dr, ctx.y_offset,
+                                                ctx.full_height, impl=ctx.impl)
+            grad_img = grad_output if ctx.needs_input_grad[3] else None
+            return grad_v_pix, None, None, grad_img, None, None, None, None, None, None
 
 
 def edge_grad_estimator(
@@ -545,7 +543,8 @@ def edge_grad_estimator(
     img = autocast_f32(img)
     vi = broadcast_vi(vi, v_pix.shape[0])
     if group is None:
-        return _EdgeGrad.apply(v_pix, vi, bary_img.detach(), img, index_img, float(max_dp_dr), impl)
+        with tracing.span("edge_grad"):
+            return _EdgeGrad.apply(v_pix, vi, bary_img.detach(), img, index_img, float(max_dp_dr), impl)
     if full_height is None:
         raise ValueError("edge_grad_estimator: full_height is required with group")
     y_offset, full_height = operator.index(y_offset), operator.index(full_height)
@@ -554,9 +553,10 @@ def edge_grad_estimator(
             f"edge_grad_estimator: rows [{y_offset}, {y_offset + index_img.shape[1]}) do not lie in a frame of "
             f"{full_height} rows"
         )
-    return _EdgeGradSharded.apply(
-        v_pix, vi, bary_img.detach(), img, index_img, float(max_dp_dr), impl, group, y_offset, full_height
-    )
+    with tracing.span("edge_grad"):
+        return _EdgeGradSharded.apply(
+            v_pix, vi, bary_img.detach(), img, index_img, float(max_dp_dr), impl, group, y_offset, full_height
+        )
 
 
 def edge_grad_image(

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from drtk_tpu_torch import tracing
 from drtk_tpu_torch.ops.math import autocast_f32
 from drtk_tpu_torch.ops.row_gather import row_gather
 
@@ -232,4 +233,6 @@ def grid_sample(
         raise ValueError(f"grid_sample: unknown mode {mode!r}")
     if padding_mode not in ("zeros", "border", "reflection"):
         raise ValueError(f"grid_sample: unknown padding_mode {padding_mode!r}")
-    return _grid_sample_impl(input, grid, mode, padding_mode, bool(align_corners), impl)
+    with tracing.span("grid_sample") as sp:
+        input, grid = sp.grad_in(input, grid)
+        return sp.grad_out(_grid_sample_impl(input, grid, mode, padding_mode, bool(align_corners), impl))

@@ -40,6 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from drtk_tpu_torch import tracing
 from drtk_tpu_torch.ops.math import autocast_f32
 from drtk_tpu_torch.ops.rasterize import broadcast_vi
 from drtk_tpu_torch.ops.render import _face_table, _pixels_to_verts
@@ -115,22 +116,23 @@ class _Interpolate(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         """Mirrors ``drtk_tpu/ops/interpolate.py:164-210``."""
-        vert_attributes, vi, index_img, bary_img = ctx.saved_tensors
-        n, h, w = index_img.shape
-        c = vert_attributes.shape[-1]
-        mask = (index_img >= 0).to(grad_out.dtype)
-        g = grad_out.movedim(1, -1) * mask[..., None]  # [N, H, W, C]
-        grad_attr = grad_bary = None
-        if ctx.needs_input_grad[3]:
-            rows = gather_rows_by_index(_face_table(vert_attributes, vi), index_img, ctx.impl)
-            attrs = rows.reshape(n, h, w, 3, c)
-            grad_bary = (g[..., None, :] * attrs).sum(-1).movedim(-1, 1).to(bary_img.dtype)
-        if ctx.needs_input_grad[0]:
-            bary = bary_img.movedim(1, -1)  # [N, H, W, 3]
-            contrib = (bary[..., None] * g[..., None, :]).reshape(n, h, w, 3 * c)
-            grad_attr = _pixels_to_verts(contrib, index_img, vi, vert_attributes.shape[1], ctx.impl)
-            grad_attr = grad_attr.to(vert_attributes.dtype)
-        return grad_attr, None, None, grad_bary, None, None, None
+        with tracing.span("interpolate_bwd"):
+            vert_attributes, vi, index_img, bary_img = ctx.saved_tensors
+            n, h, w = index_img.shape
+            c = vert_attributes.shape[-1]
+            mask = (index_img >= 0).to(grad_out.dtype)
+            g = grad_out.movedim(1, -1) * mask[..., None]  # [N, H, W, C]
+            grad_attr = grad_bary = None
+            if ctx.needs_input_grad[3]:
+                rows = gather_rows_by_index(_face_table(vert_attributes, vi), index_img, ctx.impl)
+                attrs = rows.reshape(n, h, w, 3, c)
+                grad_bary = (g[..., None, :] * attrs).sum(-1).movedim(-1, 1).to(bary_img.dtype)
+            if ctx.needs_input_grad[0]:
+                bary = bary_img.movedim(1, -1)  # [N, H, W, 3]
+                contrib = (bary[..., None] * g[..., None, :]).reshape(n, h, w, 3 * c)
+                grad_attr = _pixels_to_verts(contrib, index_img, vi, vert_attributes.shape[1], ctx.impl)
+                grad_attr = grad_attr.to(vert_attributes.dtype)
+            return grad_attr, None, None, grad_bary, None, None, None
 
 
 def interpolate(
@@ -187,7 +189,8 @@ def interpolate(
                 f"interpolate: rows [{y_offset}, {y_offset + index_img.shape[1]}) do not lie in a frame of "
                 f"{full_height} rows"
             )
-    return _Interpolate.apply(vert_attributes, vi, index_img, bary_img, impl, y_offset, full_height)
+    with tracing.span("interpolate"):
+        return _Interpolate.apply(vert_attributes, vi, index_img, bary_img, impl, y_offset, full_height)
 
 
 def interpolate_ref(

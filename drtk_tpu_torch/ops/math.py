@@ -26,6 +26,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from drtk_tpu_torch import tracing
+
 __all__ = ["autocast_f32", "epsclamp", "eps_for_dtype", "next_rank_rows", "psum_cotangent"]
 
 
@@ -66,9 +68,11 @@ class _PsumCotangent(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=ctx.group)
-        return grad, None
+        with tracing.span("allreduce"):
+            grad = grad.contiguous().clone()
+            dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=ctx.group)
+            tracing.count("allreduce_bytes", grad.nbytes)
+            return grad, None
 
 
 def psum_cotangent(x: torch.Tensor, group) -> torch.Tensor:
@@ -87,20 +91,22 @@ def next_rank_rows(tensors, fills, group) -> list:
     of its own shapes filled with ``fills``. Returns the received tensors
     on the devices of ``tensors``. Under NCCL the card's tensors travel;
     under any other backend, copies in host memory."""
-    size, rank = dist.get_world_size(group), dist.get_rank(group)
-    on_card = dist.get_backend(group) == "nccl"
-    send = [t.contiguous() if on_card else t.detach().cpu().contiguous() for t in tensors]
-    recv = [torch.empty_like(t) for t in send]
-    ops = []
-    if rank > 0:
-        prev = dist.get_global_rank(group, rank - 1)
-        ops += [dist.P2POp(dist.isend, t, prev, group, tag) for tag, t in enumerate(send)]
-    if rank < size - 1:
-        nxt = dist.get_global_rank(group, rank + 1)
-        ops += [dist.P2POp(dist.irecv, t, nxt, group, tag) for tag, t in enumerate(recv)]
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-    if rank == size - 1:
-        return [torch.full_like(t, fill) for t, fill in zip(tensors, fills)]
-    return [r.to(t.device) for r, t in zip(recv, tensors)]
+    with tracing.span("halo"):
+        size, rank = dist.get_world_size(group), dist.get_rank(group)
+        on_card = dist.get_backend(group) == "nccl"
+        send = [t.contiguous() if on_card else t.detach().cpu().contiguous() for t in tensors]
+        recv = [torch.empty_like(t) for t in send]
+        ops = []
+        if rank > 0:
+            prev = dist.get_global_rank(group, rank - 1)
+            ops += [dist.P2POp(dist.isend, t, prev, group, tag) for tag, t in enumerate(send)]
+            tracing.count("halo_bytes", sum(t.nbytes for t in send))
+        if rank < size - 1:
+            nxt = dist.get_global_rank(group, rank + 1)
+            ops += [dist.P2POp(dist.irecv, t, nxt, group, tag) for tag, t in enumerate(recv)]
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        if rank == size - 1:
+            return [torch.full_like(t, fill) for t, fill in zip(tensors, fills)]
+        return [r.to(t.device) for r, t in zip(recv, tensors)]

@@ -46,6 +46,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from drtk_tpu_torch import tracing
 from drtk_tpu_torch.ops.grid_sample import _cubic_weights, _quad_table, grid_sample
 from drtk_tpu_torch.ops.math import autocast_f32
 from drtk_tpu_torch.ops.row_gather import row_gather
@@ -394,10 +395,12 @@ def mipmap_grid_sample(
         )
     if max_aniso < 1:
         raise ValueError("mipmap_grid_sample(): max_aniso must be >= 1")
-    return _mipmap_grid_sample_impl(
-        tuple(input), grid, vt_dxdy_img, int(max_aniso), mode, padding_mode, bool(force_max_aniso),
-        bool(clip_grad), impl,
-    )
+    with tracing.span("mipmap_grid_sample") as sp:
+        grid, *input = sp.grad_in(grid, *input)
+        return sp.grad_out(_mipmap_grid_sample_impl(
+            tuple(input), grid, vt_dxdy_img, int(max_aniso), mode, padding_mode, bool(force_max_aniso),
+            bool(clip_grad), impl,
+        ))
 
 
 def _mipmap_selection_ref(q, p_max, p_min, max_aniso):

@@ -33,6 +33,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from drtk_tpu_torch import tracing
 from drtk_tpu_torch.ops.math import epsclamp
 
 __all__ = ["rasterize", "rasterize_with_depth"]
@@ -477,7 +478,7 @@ def rasterize_with_depth(
     if v.dtype in (torch.float16, torch.bfloat16):
         v = v.to(torch.float32)
 
-    with torch.no_grad():
+    with tracing.span("rasterize"), torch.no_grad():
         v = v.detach()
         if impl == "plain" or (impl == "auto" and v.device.type == "cpu"):
             setup = triangle_setup(v, vi)

@@ -18,7 +18,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from drtk_tpu_torch import _build
+from drtk_tpu_torch import _build, tracing
 from drtk_tpu_torch.ops.rasterize import (
     LineSetup,
     TriangleSetup,
@@ -30,11 +30,6 @@ from drtk_tpu_torch.ops.rasterize import (
 )
 
 __all__ = ["pack_lines", "pack_setup", "rasterize_cuda", "rasterize_lines_cuda"]
-
-# Launches of kernels B1 and B5 since the last reset (see
-# drtk_tpu_torch.kernel_launch_counts).
-launches = 0
-lines_launches = 0
 
 SETUP_FLOATS = 12  # ea[3], eb[3], ec[3], q[3]
 SETUP_INTS = 5  # top-left bits, x_lo, x_hi, y_lo, y_hi
@@ -119,7 +114,6 @@ def _bin_sizes(n: int, f_cnt: int, height: int, width: int) -> Tuple[int, int, i
 def _launch_b1(coef, meta, height: int, width: int, y_offset: int):
     """Launch kernel B1; returns (depth, index, the int32 scratch that holds
     its bins)."""
-    global launches
     n, f_cnt = _check_rows("rasterize_cuda", coef, meta, SETUP_FLOATS, SETUP_INTS)
     sizes = _bin_sizes(n, f_cnt, height, width)
     if n > _MAX_BATCH or sizes[3] >= 2**31 or sizes[0] >= 2**31:
@@ -138,7 +132,7 @@ def _launch_b1(coef, meta, height: int, width: int, y_offset: int):
         n, f_cnt, height, width, y_offset, stream,
     )
     _build.check("rasterize", err, "rasterize kernel")
-    launches += 1
+    tracing.launched("B1 rasterize")
     return depth, index, scratch
 
 
@@ -200,7 +194,6 @@ def resolve_lines_packed(
     """Launch kernel B5 on packed wireframe rows; returns (depth f32, index
     i32), each [N, H, W], rows [y_offset, y_offset + height) of the frame.
     Raises ``ValueError`` before it allocates when H*W >= 2**31."""
-    global lines_launches
     n, f_cnt = _check_rows("rasterize_lines_cuda", rows, meta, LINE_FLOATS, LINE_INTS)
     if ends.dtype != torch.int64 or ends.shape != (n * f_cnt,) or ends.device != rows.device:
         raise ValueError("rasterize_lines_cuda: ends must be int64 [N*F] beside the rows")
@@ -220,7 +213,7 @@ def resolve_lines_packed(
         index.data_ptr(), n, f_cnt, height, width, y_offset, stream,
     )
     _build.check("rasterize_lines", err, "rasterize_lines kernel")
-    lines_launches += 1
+    tracing.launched("B5 rasterize_lines")
     return depth, index
 
 

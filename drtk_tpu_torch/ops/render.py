@@ -24,6 +24,7 @@ from typing import Tuple
 
 import torch
 
+from drtk_tpu_torch import tracing
 from drtk_tpu_torch.ops.math import autocast_f32, epsclamp
 from drtk_tpu_torch.ops.rasterize import broadcast_vi
 from drtk_tpu_torch.ops.segment_rows import gather_rows_by_index, scatter_rows_to_faces
@@ -178,11 +179,12 @@ class _Render(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_depth, grad_bary):
-        v, vi, index_img = ctx.saved_tensors
-        grad_v = None
-        if ctx.needs_input_grad[0]:
-            grad_v = _render_bwd_math(v, vi, index_img, grad_depth, grad_bary, ctx.impl, ctx.y_offset)
-        return grad_v, None, None, None, None
+        with tracing.span("render_bwd"):
+            v, vi, index_img = ctx.saved_tensors
+            grad_v = None
+            if ctx.needs_input_grad[0]:
+                grad_v = _render_bwd_math(v, vi, index_img, grad_depth, grad_bary, ctx.impl, ctx.y_offset)
+            return grad_v, None, None, None, None
 
 
 def render(
@@ -211,7 +213,8 @@ def render(
     vi = broadcast_vi(vi, v.shape[0])
     if index_img.ndim != 3:
         raise ValueError(f"render: expected index_img of shape [N, H, W], got {tuple(index_img.shape)}")
-    return _Render.apply(v, vi, index_img, impl, operator.index(y_offset))
+    with tracing.span("render"):
+        return _Render.apply(v, vi, index_img, impl, operator.index(y_offset))
 
 
 def render_ref(

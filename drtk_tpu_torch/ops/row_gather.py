@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from drtk_tpu_torch import tracing
 from drtk_tpu_torch.ops.window_accum import _rows_hw, window_accumulate
 
 __all__ = ["row_gather"]
@@ -55,11 +56,12 @@ class _RowGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_rows):
-        (idx,) = ctx.saved_tensors
-        grad_table = None
-        if ctx.needs_input_grad[0]:
-            grad_table = _RowScatter.apply(grad_rows, idx, ctx.table_hw, ctx.rows_hw, ctx.impl)
-        return grad_table, None, None, None, None
+        with tracing.span("row_gather_bwd"):
+            (idx,) = ctx.saved_tensors
+            grad_table = None
+            if ctx.needs_input_grad[0]:
+                grad_table = _RowScatter.apply(grad_rows, idx, ctx.table_hw, ctx.rows_hw, ctx.impl)
+            return grad_table, None, None, None, None
 
 
 class _RowScatter(torch.autograd.Function):
@@ -105,7 +107,8 @@ def row_gather(
             f"row_gather: expected table [N, Ht*Wt, K] and idx [N, P] with (Ht, Wt) = {table_hw}, "
             f"got {tuple(table.shape)} and {tuple(idx.shape)}"
         )
-    return _RowGather.apply(table, idx, (t_h, t_w), _rows_hw(rows_hw, idx.shape[1]), impl)
+    with tracing.span("row_gather"):
+        return _RowGather.apply(table, idx, (t_h, t_w), _rows_hw(rows_hw, idx.shape[1]), impl)
 
 
 def _row_scatter(

@@ -24,14 +24,9 @@ import ctypes
 
 import torch
 
-from drtk_tpu_torch import _build
+from drtk_tpu_torch import _build, tracing
 
 __all__ = ["gather_rows_by_index", "scatter_rows_to_faces"]
-
-# Launches of kernels B2 and B3 since the last reset (see
-# drtk_tpu_torch.kernel_launch_counts).
-launches = 0
-scatter_launches = 0
 
 _C_ENTRY = {torch.float32: "drtk_gather_rows_f32", torch.float64: "drtk_gather_rows_f64"}
 _C_SCATTER = {torch.float32: "drtk_scatter_rows_f32", torch.float64: "drtk_scatter_rows_f64"}
@@ -57,7 +52,6 @@ def _gather_rows_plain(table: torch.Tensor, index_img: torch.Tensor) -> torch.Te
 
 def _gather_rows_cuda(table: torch.Tensor, index_img: torch.Tensor) -> torch.Tensor:
     """Launch kernel B2 on the tensors' device and current stream."""
-    global launches
     if table.dtype not in _C_ENTRY:
         raise TypeError(f"gather_rows_by_index: no kernel for {table.dtype} tables")
     if index_img.dtype != torch.int32:
@@ -78,7 +72,7 @@ def _gather_rows_cuda(table: torch.Tensor, index_img: torch.Tensor) -> torch.Ten
     stream = torch.cuda.current_stream(table.device).cuda_stream
     err = fn(table.data_ptr(), index_img.data_ptr(), out.data_ptr(), n, h * w, f_cnt, k_dim, stream)
     _build.check("gather_rows", err, "gather_rows kernel")
-    launches += 1
+    tracing.launched("B2 gather_rows")
     return out
 
 
@@ -130,7 +124,6 @@ def _scatter_rows_plain(rows: torch.Tensor, index_img: torch.Tensor, num_faces: 
 
 def _scatter_rows_cuda(rows: torch.Tensor, index_img: torch.Tensor, num_faces: int) -> torch.Tensor:
     """Launch kernel B3 on the tensors' device and current stream."""
-    global scatter_launches
     if rows.dtype not in _C_SCATTER:
         raise TypeError(f"scatter_rows_to_faces: no kernel for {rows.dtype} rows")
     if index_img.dtype != torch.int32:
@@ -150,7 +143,7 @@ def _scatter_rows_cuda(rows: torch.Tensor, index_img: torch.Tensor, num_faces: i
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     err = fn(rows.data_ptr(), index_img.data_ptr(), out.data_ptr(), n, h, w, num_faces, k_dim, stream)
     _build.check("scatter_rows", err, "scatter_rows kernel")
-    scatter_launches += 1
+    tracing.launched("B3 scatter_rows")
     return out
 
 

@@ -22,12 +22,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from drtk_tpu_torch import _build
+from drtk_tpu_torch import _build, tracing
 
 __all__ = ["window_accumulate"]
-
-# Launches of kernel B4 since the last reset (see drtk_tpu_torch.kernel_launch_counts).
-launches = 0
 
 _C_ENTRY = {torch.float32: "drtk_window_accum_f32", torch.float64: "drtk_window_accum_f64"}
 _ARGTYPES = (
@@ -62,7 +59,6 @@ def _window_accumulate_plain(rows, iy, ix, out_h: int, out_w: int) -> torch.Tens
 def _window_accumulate_cuda(rows, iy, ix, out_h: int, out_w: int, rows_hw=None) -> torch.Tensor:
     """Launch kernel B4 on the tensors' device and current stream. ``rows``
     is read through its strides, so a transposed view costs no copy."""
-    global launches
     if rows.dtype not in _C_ENTRY:
         raise TypeError(f"window_accumulate: no kernel for {rows.dtype} rows")
     if iy.dtype != torch.int32 or ix.dtype != torch.int32:
@@ -88,7 +84,7 @@ def _window_accumulate_cuda(rows, iy, ix, out_h: int, out_w: int, rows_hw=None) 
         out_h, out_w, stream,
     )
     _build.check("window_accum", err, "window_accum kernel")
-    launches += 1
+    tracing.launched("B4 window_accum")
     return out
 
 

@@ -25,6 +25,7 @@ import torch
 from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
+from drtk_tpu_torch import tracing
 from drtk_tpu_torch.ops.edge_grad import edge_grad_to_verts
 from drtk_tpu_torch.ops.math import autocast_f32
 from drtk_tpu_torch.ops.rasterize import broadcast_vi
@@ -58,6 +59,7 @@ def map_row_bands(band_fn: Callable, height: int, n_bands: int, remat: bool = Tr
         ``[..., height, W]``.
     """
     hb = _band_height(height, n_bands)
+    band_fn = tracing.bands(band_fn)
     outs = []
     for b in range(n_bands):
         y0 = b * hb
@@ -81,19 +83,20 @@ class _EdgeGradBanded(torch.autograd.Function):
         vertices with the band, into one accumulator. The last band needs
         no halo row: its stencil centres on the frame's last row are
         dropped."""
-        v_pix, vi, bary_img, img, index_img = ctx.saved_tensors
-        grad_v_pix = None
-        if ctx.needs_input_grad[0]:
-            h = img.shape[2]
-            hb = _band_height(h, ctx.n_bands)
-            for y0 in range(0, h, hb):
-                rows = slice(y0, y0 + hb + 1)  # the band and the next band's first row
-                grad_v_pix = edge_grad_to_verts(
-                    v_pix, vi, index_img[:, rows], img[:, :, rows], grad_output[:, :, rows], bary_img[:, :, rows],
-                    ctx.max_dp_dr, y0, h, out=grad_v_pix, impl=ctx.impl,
-                )
-        grad_img = grad_output if ctx.needs_input_grad[3] else None
-        return grad_v_pix, None, None, grad_img, None, None, None, None
+        with tracing.span("edge_grad_bwd"):
+            v_pix, vi, bary_img, img, index_img = ctx.saved_tensors
+            grad_v_pix = None
+            if ctx.needs_input_grad[0]:
+                h = img.shape[2]
+                hb = _band_height(h, ctx.n_bands)
+                for y0 in range(0, h, hb):
+                    rows = slice(y0, y0 + hb + 1)  # the band and the next band's first row
+                    grad_v_pix = edge_grad_to_verts(
+                        v_pix, vi, index_img[:, rows], img[:, :, rows], grad_output[:, :, rows],
+                        bary_img[:, :, rows], ctx.max_dp_dr, y0, h, out=grad_v_pix, impl=ctx.impl,
+                    )
+            grad_img = grad_output if ctx.needs_input_grad[3] else None
+            return grad_v_pix, None, None, grad_img, None, None, None, None
 
 
 def edge_grad_estimator_banded(
@@ -118,4 +121,6 @@ def edge_grad_estimator_banded(
     img = autocast_f32(img)
     vi = broadcast_vi(vi, v_pix.shape[0])
     _band_height(img.shape[2], n_bands)
-    return _EdgeGradBanded.apply(v_pix, vi, bary_img.detach(), img, index_img, float(max_dp_dr), int(n_bands), impl)
+    with tracing.span("edge_grad"):
+        return _EdgeGradBanded.apply(v_pix, vi, bary_img.detach(), img, index_img, float(max_dp_dr), int(n_bands),
+                                     impl)

@@ -31,6 +31,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from drtk_tpu_torch import tracing
 from drtk_tpu_torch.ops.edge_grad import edge_grad_estimator
 from drtk_tpu_torch.ops.grid_sample import grid_sample
 from drtk_tpu_torch.ops.interpolate import interpolate
@@ -102,16 +103,18 @@ def make_row_sharded_forward(
             return grid_sample(tex, uv, mode="bilinear", padding_mode="border", align_corners=False)
 
     def forward(v, vt, tex):
-        v, vt, tex = (psum_cotangent(x, group) for x in (v, vt, tex))
-        index_img = rasterize(v, vi, hb, width, y_offset=y0, full_height=height)
-        _, bary = render(v, vi, index_img, y_offset=y0)
-        vt_img = interpolate(vt, vi, index_img, bary, y_offset=y0, full_height=height)
-        img = shade(vt_img, tex)
-        img = img * (index_img != -1)[:, None]
-        return edge_grad_estimator(
-            v_pix=v, vi=vi, bary_img=bary, img=img, index_img=index_img, group=group, y_offset=y0,
-            full_height=height,
-        )
+        # The backward span runs from the block's gradient to the inputs'.
+        with tracing.span("forward", backward="backward") as sp:
+            v, vt, tex = (psum_cotangent(x, group) for x in sp.grad_in(v, vt, tex))
+            index_img = rasterize(v, vi, hb, width, y_offset=y0, full_height=height)
+            _, bary = render(v, vi, index_img, y_offset=y0)
+            vt_img = interpolate(vt, vi, index_img, bary, y_offset=y0, full_height=height)
+            img = shade(vt_img, tex)
+            img = img * (index_img != -1)[:, None]
+            return sp.grad_out(edge_grad_estimator(
+                v_pix=v, vi=vi, bary_img=bary, img=img, index_img=index_img, group=group, y_offset=y0,
+                full_height=height,
+            ))
 
     return forward
 

@@ -33,6 +33,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from drtk_tpu_torch import tracing
 from drtk_tpu_torch.interop import resolve_device
 from drtk_tpu_torch.ops.edge_grad import edge_grad_estimator
 from drtk_tpu_torch.ops.grid_sample import grid_sample
@@ -67,27 +68,6 @@ INVERSE8_STAGES = MULTIVIEW_STAGES + ("loss",) + BACKWARD_STAGES + ("transform_b
 AVATAR4K_STAGES = ("forward", "backward", "adam")
 
 
-def _marker(stage_times: list | None):
-    """``mark(name)`` appends (name, CUDA event recorded now) to
-    ``stage_times``; ``mark(name, t)`` does so when the gradient of ``t``
-    is computed in a backward pass (if ``t`` requires one)."""
-
-    def record(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        stage_times.append((name, ev))
-
-    def mark(name, grad_of=None):
-        if stage_times is None:
-            return
-        if grad_of is None:
-            record(name)
-        elif grad_of.requires_grad:
-            grad_of.register_hook(lambda _grad: record(name))
-
-    return mark
-
-
 def _check_devices(fn: str, device, tensors) -> torch.device:
     """``device``, resolved; raises if a tensor among ``tensors`` (other
     values, such as a distortion mode, are skipped) lies elsewhere."""
@@ -104,26 +84,26 @@ def _bilinear(tex, uv, impl: str):
     return grid_sample(tex, uv, mode="bilinear", padding_mode="border", impl=impl)
 
 
-def _shade(fn: str, v, vi, vt, sample, h: int, w: int, impl: str, mark, index_img):
-    """The stages every renderer shares, each marked: rasterize (unless
-    ``index_img`` is given), render, interpolate the uvs, and shade with
-    ``sample(uv [N, H, W, 2] in [-1, 1], index_img, bary_img)``. Returns
-    (rgb [N, C, H, W], mask [N, 1, H, W] of rgb's dtype, bary_img,
-    index_img)."""
+def _shade(fn: str, v, vi, vt, sample, h: int, w: int, impl: str, stage_times, index_img):
+    """The stages every renderer shares, each marked in ``stage_times``:
+    rasterize (unless ``index_img`` is given), render, interpolate the uvs,
+    and shade with ``sample(uv [N, H, W, 2] in [-1, 1], index_img,
+    bary_img)``. Returns (rgb [N, C, H, W], mask [N, 1, H, W] of rgb's
+    dtype, bary_img, index_img)."""
     if index_img is None:
         index_img = rasterize(v, vi, h, w, impl=impl)
     elif tuple(index_img.shape) != (v.shape[0], h, w) or index_img.dtype != torch.int32:
         raise ValueError(f"{fn}: expected an int32 index_img of shape {(v.shape[0], h, w)}")
-    mark("rasterize")
+    tracing.mark(stage_times, "rasterize")
     _, bary_img = render(v, vi, index_img, impl=impl)
-    mark("render")
-    mark("interpolate_bwd", bary_img)
+    tracing.mark(stage_times, "render")
+    tracing.mark(stage_times, "interpolate_bwd", bary_img)
     vt_img = interpolate(vt, vi, index_img, bary_img, impl=impl)  # [N, 2, H, W]
-    mark("interpolate")
+    tracing.mark(stage_times, "interpolate")
     uv = vt_img.movedim(1, -1) * 2.0 - 1.0
-    mark("grid_sample_bwd", uv)
+    tracing.mark(stage_times, "grid_sample_bwd", uv)
     rgb = sample(uv, index_img, bary_img)
-    mark("grid_sample")
+    tracing.mark(stage_times, "grid_sample")
     return rgb, (index_img != -1)[:, None].to(rgb.dtype), bary_img, index_img
 
 
@@ -164,17 +144,16 @@ def render_textured(
     dev = _check_devices("render_textured", device, {"v": v, "vi": vi, "vt": vt, "tex": tex, "index_img": index_img})
     if stage_times is not None and dev.type != "cuda":
         raise ValueError("render_textured: stage_times needs a CUDA device")
-    mark = _marker(stage_times)
 
-    mark("start")
+    tracing.mark(stage_times, "start")
     rgb, maskf, bary_img, index_img = _shade(
-        "render_textured", v, vi, vt, lambda uv, *_: _bilinear(tex, uv, impl), h, w, impl, mark, index_img
+        "render_textured", v, vi, vt, lambda uv, *_: _bilinear(tex, uv, impl), h, w, impl, stage_times, index_img
     )
     img = rgb * maskf
-    mark("mask")
-    mark("edge_grad_bwd", img)
+    tracing.mark(stage_times, "mask")
+    tracing.mark(stage_times, "edge_grad_bwd", img)
     img = edge_grad_estimator(v_pix=v, vi=vi, bary_img=bary_img, img=img, index_img=index_img, impl=impl)
-    mark("edge_grad")
+    tracing.mark(stage_times, "edge_grad")
     return img, index_img
 
 
@@ -233,11 +212,10 @@ def fit_step(
         inputs["v"], vi, inputs["vt"], inputs["tex"], h, w,
         device=device, impl=impl, stage_times=stage_times, index_img=index_img,
     )
-    mark = _marker(stage_times)
     loss = textured_loss(img, weight)
-    mark("loss")
+    tracing.mark(stage_times, "loss")
     grads = torch.autograd.grad(loss, [inputs[k] for k in wrt])
-    mark("render_bwd")
+    tracing.mark(stage_times, "render_bwd")
     return loss.detach(), dict(zip(wrt, grads))
 
 
@@ -306,21 +284,20 @@ def _render_views(fn: str, v_world, vi, vt, textures: dict, cams: dict, h: int, 
         t.shape[0] != 1 for t in textures.values()
     ):
         raise ValueError(f"{fn}: expected one mesh, uv set and texture (batch 1)")
-    mark = _marker(stage_times)
     views = _views(cams)
 
-    mark("start")
+    tracing.mark(stage_times, "start")
     v_pix = transform(v_world.expand(views, -1, -1), **cams)
-    mark("transform")
-    mark("render_bwd", v_pix)
+    tracing.mark(stage_times, "transform")
+    tracing.mark(stage_times, "render_bwd", v_pix)
     rgb, maskf, bary, index_img = _shade(
-        fn, v_pix, vi, vt.expand(views, -1, -1), sample, h, w, impl, mark, index_img
+        fn, v_pix, vi, vt.expand(views, -1, -1), sample, h, w, impl, stage_times, index_img
     )
     img = torch.cat([rgb * maskf, maskf], dim=1)
-    mark("mask")
-    mark("edge_grad_bwd", img)
+    tracing.mark(stage_times, "mask")
+    tracing.mark(stage_times, "edge_grad_bwd", img)
     img = edge_grad_estimator(v_pix=v_pix, vi=vi, bary_img=bary, img=img, index_img=index_img, impl=impl)
-    mark("edge_grad")
+    tracing.mark(stage_times, "edge_grad")
     return img, index_img
 
 
@@ -422,20 +399,22 @@ def inverse8_step(
     v_world, tex = params
     if not (v_world.requires_grad and tex.requires_grad):
         raise ValueError("inverse8_step: v_world and tex must require gradients")
-    img, _ = render_multiview(
-        v_world, vi, vt, tex, cams, h, w, device=device, impl=impl, stage_times=stage_times, index_img=index_img
-    )
-    if img_gt.shape != img.shape:
-        raise ValueError(f"inverse8_step: img_gt has shape {tuple(img_gt.shape)}, expected {tuple(img.shape)}")
-    mark = _marker(stage_times)
-    loss = ((img - img_gt) ** 2).mean()
-    mark("loss")
-    grads = torch.autograd.grad(loss, [v_world, tex])
-    mark("transform_bwd")
+    with tracing.span("forward"):
+        img, _ = render_multiview(
+            v_world, vi, vt, tex, cams, h, w, device=device, impl=impl, stage_times=stage_times, index_img=index_img
+        )
+        if img_gt.shape != img.shape:
+            raise ValueError(f"inverse8_step: img_gt has shape {tuple(img_gt.shape)}, expected {tuple(img.shape)}")
+        loss = ((img - img_gt) ** 2).mean()
+        tracing.mark(stage_times, "loss")
+    with tracing.span("backward"):
+        grads = torch.autograd.grad(loss, [v_world, tex])
+    tracing.mark(stage_times, "transform_bwd")
     for p, g in zip((v_world, tex), grads):
         p.grad = g
-    optimizer.step()
-    mark("adam")
+    with tracing.span("adam"):
+        optimizer.step()
+    tracing.mark(stage_times, "adam")
     return loss.detach(), {"v_world": grads[0], "tex": grads[1]}
 
 
@@ -507,8 +486,7 @@ def avatar4k_loss(params, vi, vt, ray_o, ray_d, h: int, n_bands: int = 4, remat:
         raise ValueError(f"avatar4k_loss: expected an int32 index_img of shape {(v.shape[0], h, h)}")
     if stage_times is not None and resolve_device(device).type != "cuda":
         raise ValueError("avatar4k_loss: stage_times needs a CUDA device")
-    mark = _marker(stage_times)
-    mark("start")
+    tracing.mark(stage_times, "start")
     bg_img = avatar4k_background(ray_o, ray_d, msi_tex, h)
     hb = h // n_bands
     fg, maskf, bary, idx = map_row_bands(lambda y0: avatar4k_band(v, vi, vt, levels, y0, hb, h, impl, index_img), h,
@@ -517,7 +495,7 @@ def avatar4k_loss(params, vi, vt, ray_o, ray_d, h: int, n_bands: int = 4, remat:
                                     impl=impl)
     img = fg + bg_img * (1.0 - maskf)
     loss = (img**2).mean()
-    mark("forward")
+    tracing.mark(stage_times, "forward")
     return loss
 
 
@@ -528,9 +506,11 @@ def avatar4k_background(ray_o, ray_d, msi_tex, h: int) -> torch.Tensor:
     bh = math.isqrt(ray_o.shape[0])
     if bh * bh != ray_o.shape[0]:
         raise ValueError(f"avatar4k_loss: expected a square grid of rays, got {ray_o.shape[0]}")
-    bg = msi(ray_o, ray_d, msi_tex, sub_step_count=2)
-    bg_img = bg[:, :3].reshape(1, bh, bh, 3).movedim(-1, 1)
-    return F.interpolate(bg_img, size=(h, h), mode="bilinear", align_corners=False, antialias=False)
+    with tracing.span("background") as sp:
+        ray_o, ray_d, msi_tex = sp.grad_in(ray_o, ray_d, msi_tex)
+        bg = msi(ray_o, ray_d, msi_tex, sub_step_count=2)
+        bg_img = bg[:, :3].reshape(1, bh, bh, 3).movedim(-1, 1)
+        return sp.grad_out(F.interpolate(bg_img, size=(h, h), mode="bilinear", align_corners=False, antialias=False))
 
 
 def avatar4k_step(params: tuple[torch.Tensor, Sequence[torch.Tensor], torch.Tensor],
@@ -562,14 +542,16 @@ def avatar4k_step(params: tuple[torch.Tensor, Sequence[torch.Tensor], torch.Tens
     leaves = [v, *levels, msi_tex]
     if not all(t.requires_grad for t in leaves):
         raise ValueError("avatar4k_step: v, the levels and msi_tex must require gradients")
-    loss = avatar4k_loss(params, vi, vt, ray_o, ray_d, h, n_bands, remat, device, impl, index_img, stage_times)
-    mark = _marker(stage_times)
-    grads = torch.autograd.grad(loss, leaves)
-    mark("backward")
+    with tracing.span("forward"):
+        loss = avatar4k_loss(params, vi, vt, ray_o, ray_d, h, n_bands, remat, device, impl, index_img, stage_times)
+    with tracing.span("backward"):
+        grads = torch.autograd.grad(loss, leaves)
+    tracing.mark(stage_times, "backward")
     for p, g in zip(leaves, grads):
         p.grad = g
-    optimizer.step()
-    mark("adam")
+    with tracing.span("adam"):
+        optimizer.step()
+    tracing.mark(stage_times, "adam")
     return loss.detach(), {"v": grads[0], "levels": list(grads[1:-1]), "msi_tex": grads[-1]}
 
 

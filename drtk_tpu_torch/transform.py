@@ -8,6 +8,7 @@ from typing import List, Optional, Tuple, Union
 
 import torch
 
+from drtk_tpu_torch import tracing
 from drtk_tpu_torch.utils.projection import project_points
 
 __all__ = ["transform", "transform_with_v_cam"]
@@ -67,22 +68,26 @@ def transform_with_v_cam(
     if not ((focal is not None and princpt is not None) ^ (K is not None)):
         raise ValueError("You must provide exactly one of K or (focal, princpt).")
 
-    if Rt is not None:
-        camrot = Rt[:, :3, :3]
-        campos = -torch.einsum("nji,njk->nik", camrot, Rt[:, :3, 3:4])[..., 0]
-    if K is not None:
-        focal = K[:, :2, :2]
-        princpt = K[:, :2, 2]
+    with tracing.span("transform") as sp:
+        v, campos, camrot, focal, princpt, K, Rt, distortion_coeff, lut_vector_field = sp.grad_in(
+            v, campos, camrot, focal, princpt, K, Rt, distortion_coeff, lut_vector_field
+        )
+        if Rt is not None:
+            camrot = Rt[:, :3, :3]
+            campos = -torch.einsum("nji,njk->nik", camrot, Rt[:, :3, 3:4])[..., 0]
+        if K is not None:
+            focal = K[:, :2, :2]
+            princpt = K[:, :2, 2]
 
-    return project_points(
-        v=v,
-        campos=campos,
-        camrot=camrot,
-        focal=focal,
-        princpt=princpt,
-        distortion_mode=distortion_mode,
-        distortion_coeff=distortion_coeff,
-        fov=fov,
-        lut_vector_field=lut_vector_field,
-        lut_spacing=lut_spacing,
-    )
+        return sp.grad_out(project_points(
+            v=v,
+            campos=campos,
+            camrot=camrot,
+            focal=focal,
+            princpt=princpt,
+            distortion_mode=distortion_mode,
+            distortion_coeff=distortion_coeff,
+            fov=fov,
+            lut_vector_field=lut_vector_field,
+            lut_spacing=lut_spacing,
+        ))

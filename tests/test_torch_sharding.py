@@ -37,9 +37,23 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_port_exports_every_name_of_the_jax_package():
-    import drtk_tpu as dt
+    """The JAX package's public names as this file sees them (the package
+    and ``drtk_tpu.parallel.sharding``), listed in a fresh interpreter: a
+    submodule that another test in the same worker imports, such as
+    ``drtk_tpu.native``, would add its name to the package."""
+    import json
+    import subprocess
+    import sys
+
     import drtk_tpu_torch as tt
 
-    public = {n for n in vars(dt) if not n.startswith("_")}
+    code = ("import json, drtk_tpu, drtk_tpu.parallel.sharding; "
+            "print(json.dumps(sorted(n for n in vars(drtk_tpu) if not n.startswith('_'))))")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]))
+    res = subprocess.run([sys.executable, "-c", code], cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    public = json.loads(res.stdout.splitlines()[-1])
+    assert {"parallel", "rasterize", "transform"} <= set(public)
     missing = sorted(n for n in public if not hasattr(tt, n))
     assert not missing, missing
