@@ -3,7 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --sharded-only   # the row-sharded step alone
 
-Builds the six CUDA kernels from the sources in this checkout, holds each
+Builds the seven CUDA kernels from the sources in this checkout, holds each
 one against its plain PyTorch version on the card, then drives the paths a
 user calls, each with the kernel launch counts reset just before it and
 checked just after:
@@ -23,18 +23,19 @@ checked just after:
   backward, mipmapped shading from a 3x512^2..3x64^2 pyramid, an MSI
   background on 256^2 rays), the training step (gradients to the vertices,
   the pyramid and the MSI texture, an Adam update), with B1 under the
-  viewport, B2, E1 (the banded edge_grad backward's band 0), B3 (that
-  band's bary x g rows, from the plain stencil) and B4 (the mipmap
-  backward's taps) held against their plain versions on the step's own
-  band-0 inputs, the bands against the full frame and the band recompute
-  against none;
+  viewport, B2, E1 (the banded edge_grad backward's band 0) and B3 (that
+  band's bary x g rows, from the plain stencil) held against their plain
+  versions and M1 (the mipmap, forward and backward) against the
+  composite on the step's own band-0 inputs, the bands against the full
+  frame and the band recompute against none;
 - on the inverse8 scene again, the training step through a lens (each
   camera a Fisheye62 lens with its fov estimated once before the steps;
   then a per-view list of pinhole, radial-tangential and fisheye lenses),
   and the 8 views shaded with mipmaps as ``examples/04`` shades
   (``render_mipmap_multiview``: the analytic uv Jacobian driving
   ``mipmap_grid_sample`` from a 4-level pyramid of the texture), forward
-  and backward, each against the same path through the plain versions;
+  and backward, each against the same path through the plain versions, M1
+  against the composite on the views' own inputs;
 - ``grid_scatter`` of the textured scene's 1024^2 render through its uv
   image into a 3x512^2 texture (bilinear/border, bicubic/zeros), its one B4
   launch per forward held against the plain version on the same taps and
@@ -137,7 +138,7 @@ GS_HW, GS_CALLS = 512, 10  # grid_scatter's output texture; timed calls of grid_
 SHARDED_RANKS, SHARDED_MESHES = 4, (("(1, 4)", 4, 1), ("(2, 2)", 4, 2), ("(1, 2) of 4", 2, 1))
 SHARDED_WARMUP, SHARDED_STEPS = 3, 10
 SHARDED_PER_STEP = {"B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 2, "B4 window_accum": 1,
-                    "B5 rasterize_lines": 0, "E1 edge_grad": 1}
+                    "B5 rasterize_lines": 0, "E1 edge_grad": 1, "M1 mipmap_sample": 0}
 
 
 def emit(record: dict) -> None:
@@ -629,6 +630,7 @@ def main() -> int:
         from drtk_tpu_torch.ops import rasterize as rast
         from drtk_tpu_torch.ops import grid_sample as gs
         from drtk_tpu_torch.ops import edge_grad as edge_grad_mod
+        from drtk_tpu_torch.ops import mipmap_grid_sample as mipmap_mod
         from drtk_tpu_torch.ops import rasterize_cuda, segment_rows, window_accum
         from drtk_tpu_torch.ops import filter2d_ref
         from drtk_tpu_torch.ops.edge_grad import _stencil_table
@@ -774,7 +776,7 @@ def main() -> int:
     launches = tt.kernel_launch_counts()
     n_steps = WARMUP + STEPS
     if launches != {"B1 rasterize": n_steps, "B2 gather_rows": 2 * n_steps, "B3 scatter_rows": 0,
-                    "B4 window_accum": 0, "B5 rasterize_lines": 0, "E1 edge_grad": 0}:
+                    "B4 window_accum": 0, "B5 rasterize_lines": 0, "E1 edge_grad": 0, "M1 mipmap_sample": 0}:
         raise AssertionError(f"main path launches {launches} over {n_steps} steps, expected 1 B1 and 2 B2 per step")
     peak = torch.cuda.max_memory_allocated()
     per_stage = [stage_ms(marks) for marks in step_marks[WARMUP:]]
@@ -936,6 +938,77 @@ def main() -> int:
 
     b4 = b4_vs_plain("textured", v, vi, vt, tex, index_img)
 
+    # M1 against the composite (mipmap_grid_sample with impl="plain") on the
+    # arguments of one path's forward and backward launches, captured by a
+    # stand-in for mipmap_grid_sample._m1_cuda: the output, the grid's
+    # gradient and each level's, within 1e-5 of their largest magnitudes.
+    # Bound, the bytes the function must move: per pixel the grid (8 B) and
+    # the Jacobian (16 B) read and the output (4C B) written forward; the
+    # cotangent (4C B), the grid and the Jacobian read and the grid's
+    # gradient (8 B) written backward; the levels read once each way and
+    # their gradients written once.
+    def capture_m1(fn) -> tuple:
+        """(forward arguments, the backward's cotangent) of the first M1
+        launch pair that ``fn`` makes."""
+        calls, launch = [], mipmap_mod._m1_cuda
+
+        def m1_spy(*args, **kwargs):
+            calls.append(args)
+            return launch(*args, **kwargs)
+
+        mipmap_mod._m1_cuda = m1_spy
+        try:
+            fn()
+        finally:
+            mipmap_mod._m1_cuda = launch
+        fwd = next(c for c in calls if len(c) == 4)
+        bwd = next(c for c in calls if len(c) > 4)
+        return fwd, bwd[4]
+
+    def m1_record(label, fwd, cot) -> dict:
+        levels, grid, jac, opts = fwd
+        max_aniso, pad, force, clip = opts
+
+        def composite(lv=levels, g=cot):
+            lv = [x.detach().requires_grad_() for x in lv]
+            gr = grid.detach().requires_grad_()
+            out = tt.mipmap_grid_sample(lv, gr, jac, max_aniso, "bilinear", pad, force_max_aniso=force,
+                                        clip_grad=clip, impl="plain")
+            return (out.detach(), *torch.autograd.grad(out, [gr, *lv], g))
+
+        got = mipmap_mod._m1_cuda(levels, grid, jac, opts)
+        got_grid, got_levels = mipmap_mod._m1_cuda(levels, grid, jac, opts, cot)
+        want = composite()
+        summed = composite([x.abs() for x in levels], cot.abs())
+        errs = {"forward": ((got - want[0]).abs().max() / summed[0].abs().max()).item(),
+                "grid": rel_err(got_grid, want[1]),
+                **{f"levels[{i}]": ((g - w).abs().max() / s.abs().max().clamp(min=1e-30)).item()
+                   for i, (g, w, s) in enumerate(zip(got_levels, want[2:], summed[2:]))}}
+        if not all(e <= 1e-5 for e in errs.values()):
+            raise AssertionError(f"M1 {label}: differs from the composite by {errs} of the largest magnitudes")
+        del want, summed
+        with tt.tracing.Tracer() as tracer:
+            mipmap_mod._m1_cuda(levels, grid, jac, opts, cot)
+        counts = tracer.snapshot()["counts"]
+        n, c, hh, ww = got.shape
+        level_bytes = sum(x[:1].numel() if x.stride(0) == 0 else x.numel() for x in levels) * 4
+        fwd_bytes = n * hh * ww * (8 + 16 + 4 * c) + level_bytes
+        bwd_bytes = n * hh * ww * (4 * c + 8 + 16 + 8) + level_bytes + sum(x.numel() for x in got_levels) * 4
+        rec = {
+            "output": list(got.shape), "levels": [list(x.shape) for x in levels], "max_aniso": max_aniso,
+            "padding_mode": pad, "clip_grad": clip, "force_max_aniso": force,
+            "ms": cuda_ms(lambda: mipmap_mod._m1_cuda(levels, grid, jac, opts), 20),
+            "device_ms": graph_ms(lambda: mipmap_mod._m1_cuda(levels, grid, jac, opts)),
+            "bwd_ms": cuda_ms(lambda: mipmap_mod._m1_cuda(levels, grid, jac, opts, cot), 20),
+            "bwd_device_ms": graph_ms(lambda: mipmap_mod._m1_cuda(levels, grid, jac, opts, cot)),
+            "plain_ms": cuda_ms(composite, 3, warmup=1),
+            "bytes": fwd_bytes, "bound_ms": fwd_bytes / bw * 1e3, "bwd_bytes": bwd_bytes,
+            "bwd_bound_ms": bwd_bytes / bw * 1e3, "rel_err": errs,
+            "window_adds": counts.get("M1 window_adds"), "fallback_adds": counts.get("M1 fallback_adds"),
+        }
+        emit({"phase": "M1 vs composite", "input": label, **rec})
+        return rec
+
     # E1 vs plain, on the arguments of the launches a path makes (captured by
     # a stand-in for edge_grad._e1_cuda): verts mode as the backward calls it
     # and image mode (edge_grad_image's) on the same inputs, each at
@@ -1085,9 +1158,9 @@ def main() -> int:
     # gradients to v, vt and tex, then bench_textured's v-only gradient.
     expected = {
         ("v", "vt", "tex"): {"B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 2, "B4 window_accum": 1,
-                             "B5 rasterize_lines": 0, "E1 edge_grad": 1},
+                             "B5 rasterize_lines": 0, "E1 edge_grad": 1, "M1 mipmap_sample": 0},
         ("v",): {"B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 1, "B4 window_accum": 0,
-                 "B5 rasterize_lines": 0, "E1 edge_grad": 1},
+                 "B5 rasterize_lines": 0, "E1 edge_grad": 1, "M1 mipmap_sample": 0},
     }
     fit = {}
     for wrt, per_step in expected.items():
@@ -1287,7 +1360,7 @@ def main() -> int:
     # index image, each side from a copy of the current parameters with an
     # optimizer of its own. Phase 16 runs it through lenses.
     inv_per_step = {"B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 1, "B4 window_accum": 1,
-                    "B5 rasterize_lines": 0, "E1 edge_grad": 1}
+                    "B5 rasterize_lines": 0, "E1 edge_grad": 1, "M1 mipmap_sample": 0}
 
     def multiview_step(label, step_cams, steps, e1_timed=False) -> tuple[dict, torch.Tensor, torch.Tensor]:
         """The step's record, and the current vertices in pixel space and
@@ -1421,8 +1494,8 @@ def main() -> int:
     t_phase = time.perf_counter()
     mv_levels = [torch.from_numpy(x).to(dev) for x in box_pyramid(inv["tex_gt"].cpu().numpy(), 4)]
     mv_w = torch.randn((INV_VIEWS, 4, INV_HW, INV_HW), generator=gen, device=dev)
-    mv_per_call = {"B1 rasterize": 1, "B2 gather_rows": 6, "B3 scatter_rows": 1, "B4 window_accum": 1,
-                   "B5 rasterize_lines": 0, "E1 edge_grad": 1}
+    mv_per_call = {"B1 rasterize": 1, "B2 gather_rows": 6, "B3 scatter_rows": 1, "B4 window_accum": 0,
+                   "B5 rasterize_lines": 0, "E1 edge_grad": 1, "M1 mipmap_sample": 2}
 
     def mipmap_views(impl="auto", index_img=None, ev=None):
         vw = inv["v_world"].detach().requires_grad_()
@@ -1461,6 +1534,7 @@ def main() -> int:
     # ...held against the plain pipeline on the kernel's index image, and B2
     # against its plain version on the uv derivative's tables.
     mv_side = {}
+    m1_mv = m1_record("mipmap views", *capture_m1(lambda: mipmap_views("auto", mv_idx)))
     (mv_e1,) = capture_e1(lambda: mv_side.update(auto=mipmap_views("auto", mv_idx)))
     mv_side["plain"] = mipmap_views("plain", mv_idx)
     e1["mipmap views"] = e1_vs_plain("mipmap views", mv_e1, timed=False)
@@ -1487,7 +1561,9 @@ def main() -> int:
         "device_busy_ms_per_step": mv_profile["device_busy_ms_per_step"] if mv_profile else None,
         "peak_mem_bytes": mv_peak, "launches": mv_launches, "launches_per_call": mv_per_call,
         "coverage": (mv_idx >= 0).float().mean().item(), "loss_rel_err_vs_plain": mv_loss_err,
-        "grad_rel_err_vs_plain": mv_grad_err, "profile": mv_profile, "phase_seconds": time.perf_counter() - t_phase,
+        "grad_rel_err_vs_plain": mv_grad_err, "m1_device_ms": m1_mv["device_ms"],
+        "m1_bwd_device_ms": m1_mv["bwd_device_ms"], "profile": mv_profile,
+        "phase_seconds": time.perf_counter() - t_phase,
     })
     del mv_side, mv_grads, mv_img
 
@@ -1629,11 +1705,13 @@ def main() -> int:
     av_opt = torch.optim.Adam(av_leaves, lr=1e-3)
     av_args = (av["vi"], av["vt"], av["ray_o"], av["ray_d"], AV_HW, AV_BANDS)
     av_faces, hb = int(av["vi"].shape[0]), AV_HW // AV_BANDS
-    # per band: B1 and B2 (render K=9, interpolate K=6) in the forward and
-    # again in its recompute; B2 in interpolate's and render's backward; E1
-    # in edge_grad's; B3 in render's backward and edge_grad's; B4 once.
+    # per band: B1, B2 (render K=9, interpolate K=6) and M1 (the mipmap) in
+    # the forward and again in its recompute; B2 in interpolate's and
+    # render's backward; E1 in edge_grad's; B3 in render's backward; M1 in
+    # the mipmap's backward (no B4).
     av_per_step = {"B1 rasterize": 2 * AV_BANDS, "B2 gather_rows": 6 * AV_BANDS, "B3 scatter_rows": AV_BANDS,
-                   "B4 window_accum": AV_BANDS, "B5 rasterize_lines": 0, "E1 edge_grad": AV_BANDS}
+                   "B4 window_accum": 0, "B5 rasterize_lines": 0, "E1 edge_grad": AV_BANDS,
+                   "M1 mipmap_sample": 3 * AV_BANDS}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tt.reset_kernel_launch_counts()
@@ -1685,8 +1763,8 @@ def main() -> int:
     # band-0 inputs (the current parameters): B1 under the viewport, B2 at
     # K = 9, 6 (render, interpolate) and 16 (the stencil table, band and
     # halo row), E1 on the banded edge_grad backward's band 0, B3 on that
-    # band's bary x g rows, B4 on the mipmap backward's quad rows, captured
-    # from its launch.
+    # band's bary x g rows; M1 on the mipmap's forward and backward, captured
+    # from their launches, against the composite.
     v_av, levels_av, msi_av = av_params[0].detach(), [x.detach() for x in av_params[1]], av_params[2].detach()
     vib_av = rast.broadcast_vi(av["vi"], 1)
     b1["avatar4k_band0"] = b1_vs_plain("avatar4k band 0", v_av, av["vi"], hb, AV_HW, 0, AV_HW)
@@ -1720,22 +1798,10 @@ def main() -> int:
                                            bary_av[:, :, blk], 1e4, 0, AV_HW).contiguous()  # as B3's callers pass rows
     b2_av.update(b2_vs_plain("avatar4k band 0 and halo", {16: _stencil_table(v_av, vib_av)}, idx_eg))
     b3_av = b3_record("avatar4k band 0 edge_grad", rows_eg, idx_eg, av_faces)
-    b4_args, b4_launch = [], window_accum._window_accumulate_cuda
-
-    def b4_spy(*args):
-        b4_args.append(args)
-        return b4_launch(*args)
-
-    window_accum._window_accumulate_cuda = b4_spy
-    try:
-        lv = [x.clone().requires_grad_() for x in levels_av]
-        torch.autograd.grad(avatar4k_band(v_av, av["vi"], av["vt"], lv, 0, hb, AV_HW)[0], lv, g_av[:, :, :hb])
-    finally:
-        window_accum._window_accumulate_cuda = b4_launch
-    if len(b4_args) != 1:
-        raise AssertionError(f"avatar4k band 0: the mipmap backward launched B4 {len(b4_args)} times, expected once")
-    b4_av = b4_record("avatar4k band 0 mipmap", b4_args[0])
-    del b4_args, rows_eg
+    lv_av = [x.clone().requires_grad_() for x in levels_av]
+    m1_av = m1_record("avatar4k band 0", *capture_m1(lambda: torch.autograd.grad(
+        avatar4k_band(v_av, av["vi"], av["vt"], lv_av, 0, hb, AV_HW)[0], lv_av, g_av[:, :, :hb])))
+    del lv_av, rows_eg
 
     # ...the bands against the full frame: index, bary and uv bit for bit,
     # and the banded edge_grad's gradient to v against the full frame's.
@@ -1795,7 +1861,7 @@ def main() -> int:
     from drtk_tpu_torch.ops import interpolate as interp_mod
 
     im_per_call = {"B1 rasterize": 0, "B2 gather_rows": 2, "B3 scatter_rows": 2, "B4 window_accum": 0,
-                   "B5 rasterize_lines": 0, "E1 edge_grad": 0}
+                   "B5 rasterize_lines": 0, "E1 edge_grad": 0, "M1 mipmap_sample": 0}
     im_launches = {k: 0 for k in im_per_call}
     im_scenes = {"textured": (v, vi, index_img),
                  "inverse8": (inv_v_pix.detach(), inv["vi"], idx_k)}
@@ -1958,11 +2024,10 @@ def main() -> int:
         {"name": "B4 window_accum._window_kernel", "route": "cuda",
          "source": "drtk_tpu_torch/csrc/window_accum.cu", "replaces": "drtk_tpu/ops/window_accum.py:92",
          "launches": main_launches["B4 window_accum"], "launches_per_step": 1,
-         "max_abs_err": max(r["max_abs_err"] for r in (b4, b4_inv, b4_av, *b4_gs.values())),
+         "max_abs_err": max(r["max_abs_err"] for r in (b4, b4_inv, *b4_gs.values())),
          "ms": b4["ms"], "device_ms": b4["device_ms"], "plain_ms": b4["plain_ms"], "bound_ms": b4["bound_ms"],
          "bound_by": "bytes", "library_ms": b4["library_ms"], "library_device_ms": b4["library_device_ms"],
          "inverse8_step": {k: b4_inv[k] for k in b3_keys},
-         "avatar4k_band0": {k: b4_av[k] for k in b3_keys + ("max_abs_err", "taps", "live_taps", "rows_hw")},
          "grid_scatter": {mode: {k: r[k] for k in b3_keys + ("max_abs_err", "taps", "live_taps", "rows_hw")}
                           for mode, r in b4_gs.items()}},
         {"name": "B5 rasterize_pallas._lines_tile_kernel", "route": "cuda",
@@ -1982,9 +2047,16 @@ def main() -> int:
          "by_input": {label: {mode: {k: r[k] for k in ("ms", "device_ms", "kernel_device_ms", "plain_ms", "bound_ms",
                                                        "rel_err", "nonzero_equal") if k in r}
                               for mode, r in recs.items()} for label, recs in e1.items()}},
+        {"name": "M1 mipmap_grid_sample (bilinear)", "route": "cuda", "source": "drtk_tpu_torch/csrc/mipmap_sample.cu",
+         "replaces": "drtk_tpu/ops/mipmap_grid_sample.py:441-585 _mipmap_grid_sample_impl and :218-283 the "
+                     "window-accumulate backward (atlas, quad table, tap rows, B4)",
+         "launches": av_launches["M1 mipmap_sample"], "launches_per_step": 3 * AV_BANDS,
+         **{k: m1_av[k] for k in ("ms", "device_ms", "bwd_ms", "bwd_device_ms", "plain_ms", "bound_ms",
+                                  "bwd_bound_ms", "rel_err", "window_adds", "fallback_adds")},
+         "bound_by": "bytes", "library_ms": None, "mipmap_views": m1_mv},
     ]
     for row, key in zip(kernels, ("B1 rasterize", "B2 gather_rows", "B3 scatter_rows", "B4 window_accum",
-                                  "B5 rasterize_lines", "E1 edge_grad")):
+                                  "B5 rasterize_lines", "E1 edge_grad", "M1 mipmap_sample")):
         row["launches_by_path"] = paths(key)
     emit({"phase": "peak memory by path", "peak_mem_bytes": peaks,
           "edge_grad_backward_alone": {path: r["peak_mem_bytes"] for path, r in eg_bwd.items()}})

@@ -3,7 +3,17 @@
 
 ``grid_sample`` plus OpenGL-spec mip selection and anisotropic filtering
 with up to ``max_aniso`` taps along the dominant screen-space axis, with the
-JAX package's conventions:
+JAX package's conventions.
+
+Bilinear sampling of float32 or float64 CUDA tensors with ``impl="auto"``
+is kernel M1 (``csrc/mipmap_sample.cu``): one launch forward and one
+backward, any padding mode, ``max_aniso``, level count (up to 11, not
+necessarily halving), ``clip_grad`` and ``force_max_aniso``. It computes
+what the composite below computes, pixel by pixel, with no atlas, quad table
+or per-tap tensor; its backward recomputes the selection from the saved
+inputs (once differentiable: nothing differentiates the mipmap twice) and
+adds the levels' gradient with atomics, whose order changes from run to run.
+Bicubic, ``impl="plain"``, CPU tensors and mixed dtypes take the composite:
 
 * The pyramid is packed into one texture atlas, the levels side by side
   along the width, so a pixel's mip level is coordinate arithmetic: its
@@ -41,12 +51,14 @@ package's at an exact bound too.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from drtk_tpu_torch import tracing
+from drtk_tpu_torch import _build, tracing
 from drtk_tpu_torch.ops.grid_sample import _cubic_weights, _quad_table, grid_sample
 from drtk_tpu_torch.ops.math import autocast_f32
 from drtk_tpu_torch.ops.row_gather import row_gather
@@ -331,6 +343,135 @@ def _mipmap_grid_sample_impl(levels, grid, vt_dxdy_img, max_aniso, mode, padding
     return (out * w_tap[:, None]).sum(2)
 
 
+class _Shape(ctypes.Structure):
+    """M1's launch scalars (``struct Shape`` of ``csrc/mipmap_sample.cu``):
+    the levels' pointers, batch strides (elements) and sizes, the grid's and
+    the cotangent's strides, extents and options."""
+
+    _fields_ = [
+        ("levels", ctypes.c_void_p * _MAX_MIPMAP_COUNT), ("level_sn", ctypes.c_int64 * _MAX_MIPMAP_COUNT),
+        ("level_w", ctypes.c_int32 * _MAX_MIPMAP_COUNT), ("level_h", ctypes.c_int32 * _MAX_MIPMAP_COUNT),
+        ("grid_s", ctypes.c_int64 * 4), ("grad_s", ctypes.c_int64 * 4),
+    ] + [(k, ctypes.c_int32) for k in ("n_batch", "n_levels", "c_dim", "h", "w", "max_aniso", "padding", "clip_grad",
+                                       "force_max_aniso")]
+
+
+# (forward, backward) C entries by dtype, and their argument types.
+_C_ENTRY = {
+    torch.float32: ("drtk_mipmap_sample_fwd_f32", "drtk_mipmap_sample_bwd_f32"),
+    torch.float64: ("drtk_mipmap_sample_fwd_f64", "drtk_mipmap_sample_bwd_f64"),
+}
+_ARGTYPES = (
+    [ctypes.c_void_p] * 3 + [ctypes.POINTER(_Shape), ctypes.c_void_p],
+    [ctypes.c_void_p] * 6 + [ctypes.POINTER(_Shape), ctypes.c_void_p],
+)
+_PADDING = {"zeros": 0, "border": 1, "reflection": 2}
+_MAX_BATCH = 65535  # M1 takes the batch from blockIdx.y
+
+
+def _takes_m1(levels, grid, vt_dxdy_img, mode: str, impl: str) -> bool:
+    """M1's dispatch: bilinear, impl="auto", every tensor on CUDA in one
+    dtype that M1 takes."""
+    tensors = (grid, vt_dxdy_img, *levels)
+    return (mode == "bilinear" and impl == "auto" and grid.dtype in _C_ENTRY
+            and all(t.device.type == "cuda" and t.dtype == grid.dtype for t in tensors))
+
+
+def _planes(lvl: torch.Tensor) -> torch.Tensor:
+    """A level with contiguous [C, H, W] planes (any batch stride: an
+    expanded level is read in place), else a contiguous copy."""
+    _, c, h, w = lvl.shape
+    if (w <= 1 or lvl.stride(3) == 1) and (h <= 1 or lvl.stride(2) == w) and (c <= 1 or lvl.stride(1) == h * w):
+        return lvl
+    return lvl.contiguous()
+
+
+def _m1_launch(entry, stream, levels, grid, jac, opts, grad_out=None, need_levels=True, counts=None):
+    """Call M1's forward (``grad_out`` None) or backward C entry
+    (``entry(direction)``, looked up once the checks pass) on ``stream``
+    for tensors of one device and dtype. Returns the output [N, C, H, W],
+    or (the grid's gradient, the levels' gradients or Nones)."""
+    max_aniso, padding_mode, force_max_aniso, clip_grad = opts
+    n, h, w, _ = grid.shape
+    c = levels[0].shape[1]
+    if grid.shape[-1] != 2 or jac.shape != (n, h, w, 2, 2):
+        raise ValueError(f"mipmap kernel: grid [N, H, W, 2] and vt_dxdy_img [N, H, W, 2, 2], got "
+                         f"{tuple(grid.shape)} and {tuple(jac.shape)}")
+    if any(lvl.shape[:2] != (n, c) or lvl.shape[2] < 1 or lvl.shape[3] < 1 for lvl in levels):
+        raise ValueError(f"mipmap kernel: levels must be non-empty [{n}, {c}, H, W], got "
+                         f"{[tuple(lvl.shape) for lvl in levels]}")
+    texels = sum(lvl.shape[2] * lvl.shape[3] for lvl in levels)
+    if n > _MAX_BATCH or c * max(texels, h * w) >= 2**31:
+        raise ValueError(f"mipmap kernel: at most {_MAX_BATCH} batches and 32-bit offsets within a batch, got "
+                         f"N={n}, C={c}, H={h}, W={w}, {texels} texels")
+    levels = [_planes(lvl) for lvl in levels]
+    jac = jac.contiguous()
+    shape = _Shape()
+    for i, lvl in enumerate(levels):
+        shape.levels[i], shape.level_sn[i] = lvl.data_ptr(), lvl.stride(0) if n > 1 else 0
+        shape.level_h[i], shape.level_w[i] = lvl.shape[2], lvl.shape[3]
+    shape.grid_s[:] = grid.stride()
+    shape.n_batch, shape.n_levels, shape.c_dim, shape.h, shape.w = n, len(levels), c, h, w
+    shape.max_aniso, shape.padding = max_aniso, _PADDING[padding_mode]
+    shape.clip_grad, shape.force_max_aniso = int(clip_grad), int(force_max_aniso)
+    if grad_out is None:
+        out = torch.empty((n, c, h, w), dtype=grid.dtype, device=grid.device)
+        err = entry(0)(grid.data_ptr(), jac.data_ptr(), out.data_ptr(), ctypes.byref(shape), stream)
+    else:
+        if grad_out.shape != (n, c, h, w):
+            raise ValueError(f"mipmap kernel: the cotangent must be {(n, c, h, w)}, got {tuple(grad_out.shape)}")
+        shape.grad_s[:] = grad_out.stride()
+        grad_grid = torch.empty((n, h, w, 2), dtype=grid.dtype, device=grid.device)
+        flat = torch.zeros(n * c * texels, dtype=grid.dtype, device=grid.device) if need_levels else None
+        err = entry(1)(grid.data_ptr(), jac.data_ptr(), grad_out.data_ptr(), grad_grid.data_ptr(),
+                       None if flat is None else flat.data_ptr(), None if counts is None else counts.data_ptr(),
+                       ctypes.byref(shape), stream)
+        out = grad_grid, [None] * len(levels)
+        if flat is not None:
+            sizes = [n * c * lvl.shape[2] * lvl.shape[3] for lvl in levels]
+            out = grad_grid, [part.view(lvl.shape) for part, lvl in zip(flat.split(sizes), levels)]
+    _build.check("mipmap_sample", err, "mipmap kernel")
+    tracing.launched("M1 mipmap_sample")
+    return out
+
+
+def _m1_cuda(levels, grid, jac, opts, grad_out=None, need_levels=True):
+    """Launch M1 on the tensors' device and current stream; with the
+    tracer on, the backward's corner adds (to a block's window, to the
+    fallback's global atomics) go to its counters ``M1 window_adds`` and
+    ``M1 fallback_adds``."""
+    counts = None
+    if grad_out is not None and tracing.on():
+        counts = torch.zeros(2, dtype=torch.int64, device=grid.device)
+    out = _m1_launch(
+        lambda direction: _build.entry("mipmap_sample", _C_ENTRY[grid.dtype][direction], _ARGTYPES[direction]),
+        torch.cuda.current_stream(grid.device).cuda_stream, levels, grid, jac, opts, grad_out, need_levels, counts,
+    )
+    if counts is not None:
+        tracing.count("M1 window_adds", counts[0])
+        tracing.count("M1 fallback_adds", counts[1])
+    return out
+
+
+class _MipmapSample(torch.autograd.Function):
+    """Bilinear mipmapped sampling through M1, one launch each way; the
+    backward recomputes the selection from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, grid, vt_dxdy_img, opts, *levels):
+        ctx.save_for_backward(grid, vt_dxdy_img, *levels)
+        ctx.opts = opts
+        return _m1_cuda(levels, grid, vt_dxdy_img, opts)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        grid, vt_dxdy_img, *levels = ctx.saved_tensors
+        grad_grid, grad_levels = _m1_cuda(levels, grid, vt_dxdy_img, ctx.opts, grad_out,
+                                          any(ctx.needs_input_grad[3:]))
+        return grad_grid, None, None, *grad_levels
+
+
 def mipmap_grid_sample(
     input: List[torch.Tensor],
     grid: torch.Tensor,
@@ -358,8 +499,10 @@ def mipmap_grid_sample(
             align_corners=False, as in the JAX package.
         force_max_aniso: always take ``max_aniso`` taps.
         clip_grad: rescale the uv steps where the pyramid is truncated.
-        impl: "auto" scatters the texture gradient with kernel B4 on CUDA
-            tensors; "plain" uses the plain scatter on any device.
+        impl: "auto" runs bilinear sampling on CUDA tensors as kernel M1
+            (bicubic: the composite, its texture gradient scattered by
+            kernel B4); "plain" runs the composite with the plain scatter on
+            any device.
 
     Returns:
         [N, C, H_out, W_out] filtered samples. Gradients flow to the levels
@@ -397,6 +540,9 @@ def mipmap_grid_sample(
         raise ValueError("mipmap_grid_sample(): max_aniso must be >= 1")
     with tracing.span("mipmap_grid_sample") as sp:
         grid, *input = sp.grad_in(grid, *input)
+        if _takes_m1(input, grid, vt_dxdy_img, mode, impl):
+            opts = (int(max_aniso), padding_mode, bool(force_max_aniso), bool(clip_grad))
+            return sp.grad_out(_MipmapSample.apply(grid, vt_dxdy_img.detach(), opts, *input))
         return sp.grad_out(_mipmap_grid_sample_impl(
             tuple(input), grid, vt_dxdy_img, int(max_aniso), mode, padding_mode, bool(force_max_aniso),
             bool(clip_grad), impl,

@@ -42,13 +42,13 @@ import time
 import torch
 
 __all__ = [
-    "KERNELS", "Tracer", "bands", "count", "kernel_launch_counts", "launched", "mark", "reset_kernel_launch_counts",
-    "span",
+    "KERNELS", "Tracer", "bands", "count", "kernel_launch_counts", "launched", "mark", "on",
+    "reset_kernel_launch_counts", "span",
 ]
 
 # The hand-written kernels, by the names kernel_launch_counts() gives them.
 KERNELS = ("B1 rasterize", "B2 gather_rows", "B3 scatter_rows", "B4 window_accum", "B5 rasterize_lines",
-           "E1 edge_grad")
+           "E1 edge_grad", "M1 mipmap_sample")
 _launches = dict.fromkeys(KERNELS, 0)
 _active: Tracer | None = None
 
@@ -80,7 +80,7 @@ class Tracer:
         self._open: list[_Record] = []
         self._recompute = 0
         self._base = None
-        self.counts: dict[str, int] = {}
+        self.counts: dict[str, int | torch.Tensor] = {}
 
     def __enter__(self) -> Tracer:
         global _active
@@ -137,7 +137,7 @@ class Tracer:
                 s["device_start_ms"] = self._base.elapsed_time(r.ev_start)
                 s["device_end_ms"] = self._base.elapsed_time(r.ev_end) if r.ev_end is not None else None
             spans.append(s)
-        return {"spans": spans, "counts": dict(self.counts)}
+        return {"spans": spans, "counts": {k: int(v) for k, v in self.counts.items()}}
 
     def reset(self) -> None:
         """Forget every span and counter."""
@@ -269,8 +269,15 @@ def span(name: str, backward: str | None = None):
     return _NULL if t is None else t.span(name, backward)
 
 
-def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the entered tracer's counter ``name``."""
+def on() -> bool:
+    """Whether a tracer is entered."""
+    return _active is not None
+
+
+def count(name: str, n: int | torch.Tensor = 1) -> None:
+    """Add ``n`` to the entered tracer's counter ``name``: an int, or a
+    one-element tensor that a kernel fills on the device, read when the
+    tracer takes its snapshot."""
     t = _active
     if t is not None:
         t.counts[name] = t.counts.get(name, 0) + n

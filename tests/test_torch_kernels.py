@@ -45,6 +45,7 @@ from hypothesis import strategies as st
 import chip_smoke
 import drtk_tpu_torch as tt
 from drtk_tpu_torch.ops import grid_sample as gs
+from drtk_tpu_torch.ops import mipmap_grid_sample as mipmap_mod
 from drtk_tpu_torch.ops import rasterize_cuda, segment_rows, window_accum
 from drtk_tpu_torch.ops.rasterize import (
     _canvas_cull,
@@ -60,7 +61,7 @@ from drtk_tpu_torch.ops import edge_grad as edge_grad_mod
 from drtk_tpu_torch.ops.edge_grad import _stencil_table
 from drtk_tpu_torch.pipeline import avatar4k_band, avatar4k_step
 from drtk_tpu_torch.scenes import (
-    avatar4k_scene_arrays, entry_scene_arrays, inverse8_scene_arrays, make_scene_arrays, with_edge_flags,
+    avatar4k_scene_arrays, box_pyramid, entry_scene_arrays, inverse8_scene_arrays, make_scene_arrays, with_edge_flags,
 )
 
 
@@ -129,7 +130,7 @@ B1_SCENES = list(SCENES)
 BINNING_SCENES = ["span_s", "span_s_plus_1", "tile_borders"]
 NO_LAUNCHES = {
     "B1 rasterize": 0, "B2 gather_rows": 0, "B3 scatter_rows": 0, "B4 window_accum": 0, "B5 rasterize_lines": 0,
-    "E1 edge_grad": 0,
+    "E1 edge_grad": 0, "M1 mipmap_sample": 0,
 }
 
 
@@ -1533,29 +1534,97 @@ def _b4_close(args):
     assert bool((want != 0).any())
 
 
-@pytest.mark.cuda
-def test_b4_matches_plain_on_a_mipmap_band_backward(avatar4k_frame, monkeypatch):
-    """The mipmap backward of one 64 x 4096 band of the avatar4k step: its
-    one B4 launch, captured, against the plain version on the same taps
-    (the [2T*hb, W] tap grid, 4 x 64 x 4096 taps of 12 floats)."""
-    s, _, _ = avatar4k_frame
-    y0, hb = AV_BAND
-    launch, captured = window_accum._window_accumulate_cuda, []
+def _capture_m1(monkeypatch, fn):
+    """The arguments of M1's launches that ``fn`` makes (a stand-in for
+    ``mipmap_grid_sample._m1_cuda``): forward (levels, grid, Jacobian,
+    options), backward with the cotangent."""
+    launch, calls = mipmap_mod._m1_cuda, []
 
     def spy(*args):
-        captured.append(args)
+        calls.append(args)
         return launch(*args)
 
-    monkeypatch.setattr(window_accum, "_window_accumulate_cuda", spy)
-    levels = [x.clone().requires_grad_() for x in s["levels"]]
-    rgb = avatar4k_band(s["v"], s["vi"], s["vt"], levels, y0, hb, 4096)[0]
-    cot = torch.randn(rgb.shape, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
-    torch.autograd.grad(rgb, levels, cot)
+    monkeypatch.setattr(mipmap_mod, "_m1_cuda", spy)
+    fn()
     monkeypatch.undo()
-    assert len(captured) == 1
-    rows_kp, iy, ix, t_h, t_w, rows_hw = captured[0]
-    assert rows_kp.shape == (1, 12, 4 * hb * 4096) and rows_hw == (4 * hb, 4096) and (t_h, t_w) == (513, 961)
-    _b4_close(captured[0])
+    return calls
+
+
+def _m1_close(fwd, cot):
+    """M1 against the composite (impl="plain") on the card, on one launch
+    pair's arguments: the output, the grid's gradient and every level's
+    within 1e-5 of the largest summed magnitude (the composite on the levels'
+    and the cotangent's magnitudes: every weight is non-negative; the
+    grid's: of its largest magnitude). Atomics order the level sums."""
+    levels, grid, jac, opts = fwd
+    max_aniso, pad, force, clip = opts
+
+    def composite(lv, g):
+        lv = [x.detach().requires_grad_() for x in lv]
+        gr = grid.detach().requires_grad_()
+        out = tt.mipmap_grid_sample(lv, gr, jac, max_aniso, "bilinear", pad, force_max_aniso=force, clip_grad=clip,
+                                    impl="plain")
+        return (out.detach(), *torch.autograd.grad(out, [gr, *lv], g))
+
+    got = mipmap_mod._m1_cuda(levels, grid, jac, opts)
+    got_grid, got_levels = mipmap_mod._m1_cuda(levels, grid, jac, opts, cot)
+    want = composite(levels, cot)
+    summed = composite([x.abs() for x in levels], cot.abs())
+    torch.cuda.synchronize()
+    assert (got - want[0]).abs().max() <= 1e-5 * summed[0].abs().max()
+    assert (got_grid - want[1]).abs().max() <= 1e-5 * want[1].abs().max()
+    for g, w, m in zip(got_levels, want[2:], summed[2:]):
+        assert (g - w).abs().max() <= 1e-5 * m.max()
+    assert bool((want[2] != 0).any())
+
+
+@pytest.mark.cuda
+def test_m1_matches_composite_on_an_avatar4k_band(avatar4k_frame, monkeypatch):
+    """The mipmap of band 0 of the avatar4k step (1 x 1024 x 4096 pixels,
+    the 4-level 3 x 512^2 pyramid, bilinear, border, max_aniso 2,
+    clip_grad): its one M1 launch each way, captured, against the composite
+    on the same inputs; no B4 launch, and most corner adds go through the
+    blocks' windows."""
+    s, _, _ = avatar4k_frame
+    levels = [x.clone().requires_grad_() for x in s["levels"]]
+    before = tt.kernel_launch_counts()
+
+    def band():
+        rgb = avatar4k_band(s["v"], s["vi"], s["vt"], levels, 0, 1024, 4096)[0]
+        cot = torch.randn(rgb.shape, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        torch.autograd.grad(rgb, levels, cot)
+
+    calls = _capture_m1(monkeypatch, band)
+    after = tt.kernel_launch_counts()
+    assert [len(c) for c in calls] == [4, 6] and calls[0][1].shape == (1, 1024, 4096, 2)
+    assert after["M1 mipmap_sample"] - before["M1 mipmap_sample"] == 2
+    assert after["B4 window_accum"] == before["B4 window_accum"]
+    _m1_close(calls[0], calls[1][4])
+    with tt.tracing.Tracer() as tracer:
+        mipmap_mod._m1_cuda(*calls[0], calls[1][4])
+    counts = tracer.snapshot()["counts"]
+    assert counts["M1 window_adds"] > counts["M1 fallback_adds"]
+
+
+@pytest.mark.cuda
+def test_m1_matches_composite_on_the_mipmap_views(cuda_device, monkeypatch):
+    """The mipmapped views at chip_smoke.py's shape (8 views of 512^2, the
+    inverse8 scene, a 4-level box pyramid of its 3 x 256^2 texture expanded
+    over the views, bilinear, border, max_aniso 4): M1 against the
+    composite on the launches' own inputs."""
+    a = inverse8_scene_arrays(512, 81, 8)
+    s = {k: torch.from_numpy(x).to(cuda_device) for k, x in a.items()}
+    cams = {k: s[k] for k in ("campos", "camrot", "focal", "princpt")}
+    levels = [torch.from_numpy(x).to(cuda_device).requires_grad_() for x in box_pyramid(a["tex_gt"], 4)]
+
+    def views():
+        out, _ = tt.render_mipmap_multiview(s["v_world"], s["vi"], s["vt"], levels, cams, 512, 512)
+        cot = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        torch.autograd.grad(out, levels, cot)
+
+    calls = _capture_m1(monkeypatch, views)
+    assert [len(c) for c in calls] == [4, 6] and calls[0][0][0].stride(0) == 0
+    _m1_close(calls[0], calls[1][4])
 
 
 @pytest.mark.cuda
@@ -1619,8 +1688,8 @@ def test_avatar4k_step_on_the_card_matches_cpu(cuda_device):
         if dev == "cuda":
             torch.cuda.synchronize()
             assert tt.kernel_launch_counts() == {
-                **NO_LAUNCHES, "B1 rasterize": 8, "B2 gather_rows": 24, "B3 scatter_rows": 4, "B4 window_accum": 4,
-                "E1 edge_grad": 4,
+                **NO_LAUNCHES, "B1 rasterize": 8, "B2 gather_rows": 24, "B3 scatter_rows": 4, "E1 edge_grad": 4,
+                "M1 mipmap_sample": 12,
             }
     (loss_c, grads_c), (loss_k, grads_k) = out["cpu"], out["cuda"]
     torch.testing.assert_close(loss_k.cpu(), loss_c, rtol=1e-5, atol=0)

@@ -256,16 +256,23 @@ class _Spanned(torch.autograd.Function):
 def test_counters_and_launches():
     tt.reset_kernel_launch_counts()
     assert list(tt.kernel_launch_counts()) == ["B1 rasterize", "B2 gather_rows", "B3 scatter_rows",
-                                               "B4 window_accum", "B5 rasterize_lines", "E1 edge_grad"]
+                                               "B4 window_accum", "B5 rasterize_lines", "E1 edge_grad",
+                                               "M1 mipmap_sample"]
     tracing.launched("B2 gather_rows")
     tracing.count("halo_bytes", 10)  # no tracer: not kept
+    assert not tracing.on()
     with tracing.Tracer() as tracer:
+        assert tracing.on()
         tracing.launched("B2 gather_rows")
         tracing.launched("E1 edge_grad")
         tracing.count("halo_bytes", 10)
         tracing.count("halo_bytes", 6)
+        tracing.count("M1 fallback_adds", torch.tensor(3))  # a kernel's device counter, read at the snapshot
+        tracing.count("M1 fallback_adds", torch.tensor(4))
     assert tt.kernel_launch_counts() == {**dict.fromkeys(tracing.KERNELS, 0), "B2 gather_rows": 2, "E1 edge_grad": 1}
-    assert tracer.snapshot()["counts"] == {"B2 gather_rows": 1, "E1 edge_grad": 1, "halo_bytes": 16}
+    assert tracer.snapshot()["counts"] == {"B2 gather_rows": 1, "E1 edge_grad": 1, "halo_bytes": 16,
+                                           "M1 fallback_adds": 7}
+    assert all(type(v) is int for v in tracer.snapshot()["counts"].values())
     tracer.reset()
     assert tracer.snapshot() == {"spans": [], "counts": {}}
     tt.reset_kernel_launch_counts()
