@@ -14,8 +14,9 @@ make up :func:`avatar4k_step`, one step of the 4K avatar fit. Lens
 distortion (radial-tangential, fisheye, Fisheye62) in :func:`transform`,
 mesh geometry in :mod:`drtk_tpu_torch.utils`, the analytic screen-space uv
 Jacobian (:func:`screen_space_uv_derivative`) that drives mipmap shading in
-:func:`render_mipmap_multiview`, :func:`grid_scatter` (the transpose of
-``grid_sample``) and the alias-free resampling filters of ``filter2d``
+:func:`render_mipmap_multiview` (fitted by :func:`mipviews_step`),
+:func:`grid_scatter` (the transpose of ``grid_sample``) and the alias-free
+resampling filters of ``filter2d``
 complete the JAX package's single-device API, with the sparse
 interpolation matrices (:func:`interpolation_matrix`,
 :func:`interpolation_normal_matrix` over a cached pair structure). The
@@ -69,6 +70,7 @@ from drtk_tpu_torch.pipeline import (
     avatar4k_step,
     fit_step,
     inverse8_step,
+    mipviews_step,
     render_mipmap_multiview,
     render_multiview,
 )
@@ -106,6 +108,7 @@ __all__ = [
     "map_row_bands",
     "mipmap_grid_sample",
     "mipmap_grid_sample_ref",
+    "mipviews_step",
     "msi",
     "rasterize",
     "rasterize_with_depth",

@@ -14,7 +14,8 @@ The multi-view path's cameras may carry a lens (``distortion_mode``,
 ``distortion_coeff``, ``fov``), which ``transform`` applies.
 :func:`render_mipmap_multiview` shades the views with mipmaps as
 ``examples/04_rendering_meshes.py`` does: the analytic screen-space uv
-Jacobian drives ``mipmap_grid_sample``.
+Jacobian drives ``mipmap_grid_sample``. :func:`mipviews_step` fits one
+texture through it, its pyramid rebuilt every step (:func:`mip_pyramid`).
 
 The 4K avatar fit of ``bench.py:bench_avatar4k``: a 4096^2 frame of the
 grid mesh rendered in row bands (``map_row_bands``, each band a bit-exact
@@ -47,9 +48,10 @@ from drtk_tpu_torch.screen_space_uv_derivative import screen_space_uv_derivative
 from drtk_tpu_torch.transform import transform
 
 __all__ = [
-    "AVATAR4K_STAGES", "BACKWARD_STAGES", "FIT_STAGES", "INVERSE8_STAGES", "MULTIVIEW_STAGES", "STAGES",
-    "avatar4k_background", "avatar4k_band", "avatar4k_loss", "avatar4k_step", "fit_step", "inverse8_step",
-    "render_mipmap_multiview", "render_multiview", "render_textured", "stage_ms", "textured_loss",
+    "AVATAR4K_STAGES", "BACKWARD_STAGES", "FIT_STAGES", "INVERSE8_STAGES", "MIPVIEWS_STAGES", "MULTIVIEW_STAGES",
+    "STAGES", "avatar4k_background", "avatar4k_band", "avatar4k_loss", "avatar4k_step", "fit_step", "inverse8_step",
+    "mip_pyramid", "mipviews_step", "render_mipmap_multiview", "render_multiview", "render_textured", "stage_ms",
+    "textured_loss",
 ]
 
 STAGES = ("rasterize", "render", "interpolate", "grid_sample", "mask", "edge_grad")
@@ -63,6 +65,9 @@ MULTIVIEW_STAGES = ("transform",) + STAGES
 # render_bwd ends when the gradient of the pixel-space vertices is ready,
 # transform_bwd when the world vertices' is; adam is the optimizer update.
 INVERSE8_STAGES = MULTIVIEW_STAGES + ("loss",) + BACKWARD_STAGES + ("transform_bwd", "adam")
+# The mipmapped step's: uv_derivative once the uv Jacobian is ready, so that
+# grid_sample is the mipmapped sampling alone.
+MIPVIEWS_STAGES = INVERSE8_STAGES[:4] + ("uv_derivative",) + INVERSE8_STAGES[4:]
 # The avatar4k step's marks: the forward to the loss, the backward (the band
 # recomputes included), the Adam update; one each per step.
 AVATAR4K_STAGES = ("forward", "backward", "adam")
@@ -312,6 +317,7 @@ def render_mipmap_multiview(
     device: str | torch.device = "cuda",
     impl: str = "auto",
     index_img: torch.Tensor | None = None,
+    stage_times: list | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Render one mesh from every camera with mipmapped anisotropic
     shading, op for op as ``examples/04_rendering_meshes.py`` (its lines
@@ -333,11 +339,15 @@ def render_mipmap_multiview(
             ``focal`` raise ValueError.
         h, w: canvas size of every view.
         device, impl, index_img: as for :func:`render_multiview`.
+        stage_times: as for :func:`render_multiview`, with "uv_derivative"
+            once the uv Jacobian is ready (before "grid_sample"): the marks
+            of :data:`MIPVIEWS_STAGES` up to "edge_grad".
 
     Returns:
         (img [views, C + 1, H, W], index_img [views, H, W] int32).
         Differentiable in ``v_world`` and the levels (the uv Jacobian, as in
-        the JAX package, steers the mip selection only).
+        the JAX package, steers the mip selection only, and is computed
+        without a graph).
     """
     missing = {"campos", "camrot", "focal"} - cams.keys()
     if missing:
@@ -347,18 +357,65 @@ def render_mipmap_multiview(
         views = uv.shape[0]
         # The lens goes on to project_points_grad, which raises for any
         # distortion mode, as the JAX package's does.
-        jac = screen_space_uv_derivative(
-            v_world.expand(views, -1, -1), vt.expand(views, -1, -1), vi, vi, index_img, bary, index_img != -1,
-            cams["campos"], cams["camrot"], cams["focal"], cams.get("distortion_mode"), cams.get("distortion_coeff"),
-            impl=impl,
-        )
+        with torch.no_grad():
+            jac = screen_space_uv_derivative(
+                v_world.expand(views, -1, -1), vt.expand(views, -1, -1), vi, vi, index_img, bary, index_img != -1,
+                cams["campos"], cams["camrot"], cams["focal"], cams.get("distortion_mode"),
+                cams.get("distortion_coeff"), impl=impl,
+            )
+        tracing.mark(stage_times, "uv_derivative")
         lvls = [t.expand(views, -1, -1, -1) for t in levels]
         return mipmap_grid_sample(lvls, uv, jac, max_aniso=4, padding_mode="border", impl=impl)
 
     return _render_views(
         "render_mipmap_multiview", v_world, vi, vt, {f"levels[{i}]": t for i, t in enumerate(levels)}, cams, h, w,
-        device, impl, None, index_img, sample,
+        device, impl, stage_times, index_img, sample,
     )
+
+
+def mip_pyramid(tex: torch.Tensor, count: int) -> list[torch.Tensor]:
+    """``count`` mip levels of ``tex`` [N, C, H, W], highest resolution
+    first, each the 2x2 mean of the one before (``F.avg_pool2d``), as
+    ``examples/04_rendering_meshes.py`` builds its pyramid; differentiable,
+    so the gradient of every level reaches ``tex``. H and W must be
+    divisible by ``2**(count - 1)``. Spans ``mip_pyramid`` and
+    ``mip_pyramid_bwd``."""
+    if count < 1 or tex.ndim != 4 or tex.shape[-2] % 2 ** (count - 1) or tex.shape[-1] % 2 ** (count - 1):
+        raise ValueError(f"mip_pyramid: [N, C, H, W] with H and W divisible by 2**(count - 1), got "
+                         f"{tuple(tex.shape)} and count {count}")
+    with tracing.span("mip_pyramid") as sp:
+        (tex,) = sp.grad_in(tex)
+        levels = [tex]
+        for _ in range(count - 1):
+            levels.append(F.avg_pool2d(levels[-1], 2))
+        return sp.grad_out(levels)
+
+
+def _fit_views(fn: str, render, params, optimizer, img_gt, stage_times):
+    """The multi-view steps' loss, backward and update: ``render()`` (the
+    views [views, C + 1, H, W]) and ``mean((img - img_gt)**2)`` in the span
+    ``forward`` (mark "loss"), one backward to ``params = (v_world, tex)`` in
+    ``backward`` (mark "transform_bwd"), ``optimizer.step()`` in ``adam``
+    (mark "adam"). Returns (the detached loss, ``{"v_world": ..., "tex":
+    ...}``)."""
+    v_world, tex = params
+    if not (v_world.requires_grad and tex.requires_grad):
+        raise ValueError(f"{fn}: v_world and tex must require gradients")
+    with tracing.span("forward"):
+        img = render()
+        if img_gt.shape != img.shape:
+            raise ValueError(f"{fn}: img_gt has shape {tuple(img_gt.shape)}, expected {tuple(img.shape)}")
+        loss = ((img - img_gt) ** 2).mean()
+        tracing.mark(stage_times, "loss")
+    with tracing.span("backward"):
+        grads = torch.autograd.grad(loss, [v_world, tex])
+    tracing.mark(stage_times, "transform_bwd")
+    for p, g in zip((v_world, tex), grads):
+        p.grad = g
+    with tracing.span("adam"):
+        optimizer.step()
+    tracing.mark(stage_times, "adam")
+    return loss.detach(), {"v_world": grads[0], "tex": grads[1]}
 
 
 def inverse8_step(
@@ -397,25 +454,52 @@ def inverse8_step(
         gradients ``{"v_world": ..., "tex": ...}`` it applied.
     """
     v_world, tex = params
-    if not (v_world.requires_grad and tex.requires_grad):
-        raise ValueError("inverse8_step: v_world and tex must require gradients")
-    with tracing.span("forward"):
-        img, _ = render_multiview(
-            v_world, vi, vt, tex, cams, h, w, device=device, impl=impl, stage_times=stage_times, index_img=index_img
-        )
-        if img_gt.shape != img.shape:
-            raise ValueError(f"inverse8_step: img_gt has shape {tuple(img_gt.shape)}, expected {tuple(img.shape)}")
-        loss = ((img - img_gt) ** 2).mean()
-        tracing.mark(stage_times, "loss")
-    with tracing.span("backward"):
-        grads = torch.autograd.grad(loss, [v_world, tex])
-    tracing.mark(stage_times, "transform_bwd")
-    for p, g in zip((v_world, tex), grads):
-        p.grad = g
-    with tracing.span("adam"):
-        optimizer.step()
-    tracing.mark(stage_times, "adam")
-    return loss.detach(), {"v_world": grads[0], "tex": grads[1]}
+    return _fit_views("inverse8_step", lambda: render_multiview(
+        v_world, vi, vt, tex, cams, h, w, device=device, impl=impl, stage_times=stage_times, index_img=index_img
+    )[0], params, optimizer, img_gt, stage_times)
+
+
+def mipviews_step(
+    params: tuple[torch.Tensor, torch.Tensor],
+    optimizer: torch.optim.Optimizer,
+    vi: torch.Tensor,
+    vt: torch.Tensor,
+    cams: dict,
+    img_gt: torch.Tensor,
+    h: int,
+    w: int,
+    n_levels: int,
+    device: str | torch.device = "cuda",
+    impl: str = "auto",
+    stage_times: list | None = None,
+    index_img: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """One training step of the mipmapped multi-view fit: the pyramid of
+    ``tex`` rebuilt (:func:`mip_pyramid`, ``n_levels`` levels), every view
+    rendered by :func:`render_mipmap_multiview`, then the loss, backward
+    and update of :func:`inverse8_step`: one texture is fitted, and the
+    gradient of every level reaches it.
+
+    Args:
+        params: ``(v_world [1, V, 3], tex [1, C, T, T])``, tensors that
+            require gradients; updated in place by ``optimizer``.
+        optimizer, vi, vt, cams, img_gt, h, w, device, impl, index_img: as
+            for :func:`inverse8_step` (pinhole cameras, as for
+            :func:`render_mipmap_multiview`).
+        n_levels: the pyramid's levels (T divisible by ``2**(n_levels -
+            1)``; at most 11).
+        stage_times: as for :func:`inverse8_step`, with "uv_derivative":
+            :data:`MIPVIEWS_STAGES` (the pyramid is built before the first
+            mark, and its backward ends before "transform_bwd").
+
+    Returns:
+        (loss, grads): as for :func:`inverse8_step`.
+    """
+    v_world, tex = params
+    return _fit_views("mipviews_step", lambda: render_mipmap_multiview(
+        v_world, vi, vt, mip_pyramid(tex, n_levels), cams, h, w, device=device, impl=impl, index_img=index_img,
+        stage_times=stage_times,
+    )[0], params, optimizer, img_gt, stage_times)
 
 
 def avatar4k_band(v, vi, vt, levels, y0: int, hb: int, h: int, impl: str = "auto", index_img=None):

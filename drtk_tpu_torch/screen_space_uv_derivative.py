@@ -13,6 +13,10 @@ the uv field's derivative with respect to the pixel position, which
    (:func:`~drtk_tpu_torch.utils.projection.project_points_grad`) to
    (d p_pix / dt)^T;
 4. inverted per pixel (zeros where singular) and zeroed outside the mask.
+
+With a tracer on, the work is the span ``uv_derivative``; it has no
+backward span (the mipmapped sampling detaches the Jacobian, and the
+mipmapped views compute it without a graph).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from drtk_tpu_torch import tracing
 from drtk_tpu_torch.ops.interpolate import interpolate
 from drtk_tpu_torch.utils.geometry import _inv_2x2_or_zero, face_dpdt
 from drtk_tpu_torch.utils.projection import project_points_grad
@@ -60,21 +65,22 @@ def screen_space_uv_derivative(
     Returns:
         [N, H, W, 2, 2] ``vt_dxdy_img``, zero outside ``mask``.
     """
-    n = v.shape[0]
-    f_cnt = vi.shape[-2]
-    dpdt_t, vf = face_dpdt(v, vt, vi, vti)  # [N, F, 2, 3], [N, F, 3, 3]
-    # The face-constant Jacobian at each of the face's own three vertices.
-    dpdt3 = dpdt_t[:, :, None].expand(n, f_cnt, 3, 2, 3).reshape(n, f_cnt * 3, 6)
-    vi_dis = torch.arange(3 * f_cnt, dtype=torch.int32, device=v.device).reshape(-1, 3)
+    with tracing.span("uv_derivative"):
+        n = v.shape[0]
+        f_cnt = vi.shape[-2]
+        dpdt_t, vf = face_dpdt(v, vt, vi, vti)  # [N, F, 2, 3], [N, F, 3, 3]
+        # The face-constant Jacobian at each of the face's own three vertices.
+        dpdt3 = dpdt_t[:, :, None].expand(n, f_cnt, 3, 2, 3).reshape(n, f_cnt * 3, 6)
+        vi_dis = torch.arange(3 * f_cnt, dtype=torch.int32, device=v.device).reshape(-1, 3)
 
-    dpdt_img = interpolate(dpdt3, vi_dis, index_img, bary_img, impl=impl).movedim(1, -1)  # [N, H, W, 6]
-    h, w = dpdt_img.shape[1:3]
-    dpdt_img = dpdt_img.reshape(n, h, w, 2, 3)
-    vf_img = interpolate(vf.reshape(n, f_cnt * 3, 3), vi_dis, index_img, bary_img, impl=impl).movedim(1, -1)
-    # The surface position, once for the u and once for the v direction.
-    vf2_img = vf_img[:, :, :, None].expand(n, h, w, 2, 3)
+        dpdt_img = interpolate(dpdt3, vi_dis, index_img, bary_img, impl=impl).movedim(1, -1)  # [N, H, W, 6]
+        h, w = dpdt_img.shape[1:3]
+        dpdt_img = dpdt_img.reshape(n, h, w, 2, 3)
+        vf_img = interpolate(vf.reshape(n, f_cnt * 3, 3), vi_dis, index_img, bary_img, impl=impl).movedim(1, -1)
+        # The surface position, once for the u and once for the v direction.
+        vf2_img = vf_img[:, :, :, None].expand(n, h, w, 2, 3)
 
-    dp_pix_dt_t = project_points_grad(
-        dpdt_img.reshape(n, -1, 3), vf2_img.reshape(n, -1, 3), campos, camrot, focal, dist_mode, dist_coeff
-    ).reshape(n, h, w, 2, 2)
-    return torch.where(mask[..., None, None], _inv_2x2_or_zero(dp_pix_dt_t), dp_pix_dt_t.new_zeros(()))
+        dp_pix_dt_t = project_points_grad(
+            dpdt_img.reshape(n, -1, 3), vf2_img.reshape(n, -1, 3), campos, camrot, focal, dist_mode, dist_coeff
+        ).reshape(n, h, w, 2, 2)
+        return torch.where(mask[..., None, None], _inv_2x2_or_zero(dp_pix_dt_t), dp_pix_dt_t.new_zeros(()))

@@ -59,7 +59,7 @@ from drtk_tpu_torch.ops.row_gather import row_gather
 from drtk_tpu_torch.pipeline import fit_step, inverse8_step, render_textured
 from drtk_tpu_torch.ops import edge_grad as edge_grad_mod
 from drtk_tpu_torch.ops.edge_grad import _stencil_table
-from drtk_tpu_torch.pipeline import avatar4k_band, avatar4k_step
+from drtk_tpu_torch.pipeline import MIPVIEWS_STAGES, avatar4k_band, avatar4k_step, mip_pyramid, mipviews_step
 from drtk_tpu_torch.scenes import (
     avatar4k_scene_arrays, box_pyramid, entry_scene_arrays, inverse8_scene_arrays, make_scene_arrays, with_edge_flags,
 )
@@ -1625,6 +1625,54 @@ def test_m1_matches_composite_on_the_mipmap_views(cuda_device, monkeypatch):
     calls = _capture_m1(monkeypatch, views)
     assert [len(c) for c in calls] == [4, 6] and calls[0][0][0].stride(0) == 0
     _m1_close(calls[0], calls[1][4])
+
+
+@pytest.mark.cuda
+def test_mipviews_step_kernels_match_plain(cuda_device):
+    """The mipmapped fitting step at 8 views of 256^2 (a 41 x 41 grid, a 3 x
+    512^2 texture in 8 levels: minified ~2.3:1, as the benchmark's cell)
+    through the kernels against impl="plain" on the kernel's index image:
+    loss to 1e-5, gradients to 1e-4 of their largest magnitude, as the
+    inverse8 step is held. One step launches M1 once each way and B4 never,
+    sets the marks of MIPVIEWS_STAGES, and with the tracer on records the
+    pyramid's, the uv Jacobian's and the sampler's spans and M1's corner
+    adds (to the blocks' windows and to the fallback)."""
+    a = inverse8_scene_arrays(256, 41, 8, tex_size=512)
+    s = {k: torch.from_numpy(x).to(cuda_device) for k, x in a.items()}
+    cams = {k: s[k] for k in ("campos", "camrot", "focal", "princpt")}
+    with torch.no_grad():
+        img_gt, _ = tt.render_mipmap_multiview(s["v_world"], s["vi"], s["vt"], mip_pyramid(s["tex_gt"], 8), cams,
+                                               256, 256)
+
+    def step(p, **kw):
+        return mipviews_step(p, torch.optim.Adam(p, lr=1e-3), s["vi"], s["vt"], cams, img_gt, 256, 256, 8, **kw)
+
+    def params():
+        return (s["v_world"] + 0.02).requires_grad_(), torch.full_like(s["tex_gt"], 0.5).requires_grad_()
+
+    marks = []
+    step(params(), stage_times=marks)
+    tt.reset_kernel_launch_counts()
+    with tt.tracing.Tracer() as tracer:
+        step(params())
+    torch.cuda.synchronize()
+    assert [name for name, _ in marks] == ["start", *MIPVIEWS_STAGES]
+    assert tt.kernel_launch_counts() == {
+        **NO_LAUNCHES, "B1 rasterize": 1, "B2 gather_rows": 6, "B3 scatter_rows": 1, "E1 edge_grad": 1,
+        "M1 mipmap_sample": 2,
+    }
+    snap = tracer.snapshot()
+    names = {sp["name"] for sp in snap["spans"]}
+    assert {"mip_pyramid", "mip_pyramid_bwd", "uv_derivative", "mipmap_grid_sample", "mipmap_grid_sample_bwd"} <= names
+    assert snap["counts"]["M1 window_adds"] > 0 and "M1 fallback_adds" in snap["counts"]
+    p_k, p_p = params(), params()
+    idx = tt.rasterize(tt.transform(p_k[0].detach().expand(8, -1, -1), **cams), s["vi"], 256, 256)
+    loss, grads = step(p_k, index_img=idx)
+    loss_p, grads_p = step(p_p, index_img=idx, impl="plain")
+    torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0)
+    for name in ("v_world", "tex"):
+        err = (grads[name] - grads_p[name]).abs().max()
+        assert err <= 1e-4 * grads_p[name].abs().max(), name
 
 
 @pytest.mark.cuda
