@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --sharded-only   # the row-sharded step alone
+    python3 chip_smoke.py --render-only    # kernel R1 alone, at the benchmark's sizes
 
-Builds the seven CUDA kernels from the sources in this checkout, holds each
+Builds the eight CUDA kernels from the sources in this checkout, holds each
 one against its plain PyTorch version on the card, then drives the paths a
 user calls, each with the kernel launch counts reset just before it and
 checked just after:
@@ -73,7 +74,11 @@ entry scene (where atomics meet) and the near-miss scene (one input also
 in float64), its nonzero vertices (pixels) equal to the plain version's
 and its values within 1e-5 (float64: 1e-12) of their largest magnitude;
 the edge_grad backward alone, full frame and banded, under torch.profiler:
-E1 and the output's zeros, no B3, no ``index_add_``. Each path's peak
+E1 and the output's zeros, no B3, no ``index_add_``; and render (R1), its
+forward bit for bit and its backward within 1e-5 of the plain version's
+largest magnitude, on inverse8's frame (8 x 1024^2) and a card's block of
+the rows4 cell (8 x 1024 x 4096, y_offset 1024), with the global atomics
+its design implies (modeled from the index image). Each path's peak
 device memory is printed. Times come from CUDA events: a kernel's ``ms`` (and
 ``plain_ms``, ``library_ms``) from back-to-back calls, which count the
 host's time per call when it is the longer; ``device_ms`` (and
@@ -137,8 +142,8 @@ GS_HW, GS_CALLS = 512, 10  # grid_scatter's output texture; timed calls of grid_
 # jittered cameras, and a (1, 2) mesh over ranks 0-1; 3 warm-up steps, 10 timed.
 SHARDED_RANKS, SHARDED_MESHES = 4, (("(1, 4)", 4, 1), ("(2, 2)", 4, 2), ("(1, 2) of 4", 2, 1))
 SHARDED_WARMUP, SHARDED_STEPS = 3, 10
-SHARDED_PER_STEP = {"B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 2, "B4 window_accum": 1,
-                    "B5 rasterize_lines": 0, "E1 edge_grad": 1, "M1 mipmap_sample": 0}
+SHARDED_PER_STEP = {"B1 rasterize": 1, "B2 gather_rows": 2, "B3 scatter_rows": 1, "B4 window_accum": 1,
+                    "B5 rasterize_lines": 0, "E1 edge_grad": 1, "M1 mipmap_sample": 0, "R1 render": 2}
 
 
 def emit(record: dict) -> None:
@@ -288,6 +293,24 @@ def modeled_scatter_atomics(index_img: torch.Tensor, num_faces: int, k_dim: int)
     key = (torch.arange(n, device=dev)[:, None, None] * n_tiles + tile) * num_faces
     key = key + index_img.long().clamp(max=num_faces - 1)
     return int(torch.unique(key[index_img >= 0]).numel()) * k_dim
+
+
+RENDER_WARP = 32  # R1's backward: a warp per 32-pixel run of a tile row (kTileW)
+
+
+def modeled_render_atomics(index_img: torch.Tensor, num_faces: int) -> dict:
+    """Global atomics of R1's backward pixel pass (to face rows) for
+    ``index_img``, nine per add, zeros not skipped: with the warp's
+    combine, one add per run of equal clamped foreground faces in a warp's
+    32 pixels (``combined``); without, one per foreground pixel
+    (``per_pixel``). The fold to the vertices adds at most 9 per face."""
+    n, h, w = index_img.shape
+    face = torch.where(index_img >= 0, index_img.long().clamp(max=max(num_faces - 1, 0)), -1)
+    starts = torch.ones_like(face, dtype=torch.bool)
+    starts[..., 1:] = face[..., 1:] != face[..., :-1]
+    starts[..., ::RENDER_WARP] = True
+    fg = face >= 0
+    return {"combined": int((starts & fg).sum()) * 9, "per_pixel": int(fg.sum()) * 9}
 
 
 def b4_warp_patch(rows_hw: tuple[int, int]) -> tuple[int, int]:
@@ -582,6 +605,100 @@ def sharded_rank(rank: int, world: int, store: str, backend: str, outdir: str) -
 
 
 
+def render_bytes(v, vi, index_img, backward: bool) -> int:
+    """The bytes R1's function needs, each read or written once: the index,
+    v and vi (a shared vi once), and forward depth and bary written, or
+    backward the two cotangents read and the vertex gradient written."""
+    elt = v.element_size()
+    px = index_img.numel()
+    faces = vi.shape[1] * 3 * 4 * (1 if vi.stride(0) == 0 else vi.shape[0])
+    per_px = 4 + 4 * elt
+    return px * per_px + v.numel() * elt * (2 if backward else 1) + faces
+
+
+def r1_record(label, v, vi, index_img, y_offset, bw) -> dict:
+    """Kernel R1 against the plain version on one input: the forward bit
+    for bit, the backward to 1e-5 (f64 1e-12) of the plain gradient's
+    largest magnitude; its ms and device ms each way, the bound from
+    ``render_bytes``, the plain version's ms and the path it replaced (B2,
+    eager ops, B3 and ``index_add_``: impl "auto" of the plain math), and
+    the modeled atomics."""
+    from drtk_tpu_torch.ops import render as render_mod
+
+    dev = v.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n, h, w = index_img.shape
+    grad_depth = torch.randn((n, h, w), generator=gen, device=dev, dtype=v.dtype)
+    grad_bary = torch.randn((n, 3, h, w), generator=gen, device=dev, dtype=v.dtype)
+    cot = (grad_depth, grad_bary)
+
+    def launch(cotangents=None):
+        return render_mod._r1_cuda(v, vi, index_img, y_offset, cotangents)
+
+    depth, bary = launch()
+    grad = launch(cot)
+    want_depth, want_bary = render_mod._render_fwd_math(v, vi, index_img, "plain", y_offset)
+    want = render_mod._render_bwd_math(v, vi, index_img, grad_depth, grad_bary, "plain", y_offset)
+    torch.cuda.synchronize()
+    if not (torch.equal(depth, want_depth) and torch.equal(bary, want_bary)):
+        raise AssertionError(f"R1 {label}: the forward differs from the plain version")
+    err = rel_err(grad, want)
+    if err > (1e-12 if v.dtype == torch.float64 else 1e-5):
+        raise AssertionError(f"R1 {label}: the backward is {err} of its largest magnitude off the plain version")
+    fwd_bytes, bwd_bytes = render_bytes(v, vi, index_img, False), render_bytes(v, vi, index_img, True)
+    return {
+        "input": label, "batch": n, "H": h, "W": w, "y_offset": y_offset, "faces": vi.shape[1],
+        "dtype": str(v.dtype), "coverage": (index_img >= 0).float().mean().item(), "forward_bit_exact": True,
+        "backward_rel_err": err,
+        "fwd_ms": cuda_ms(launch, 20), "fwd_device_ms": graph_ms(launch),
+        "bwd_ms": cuda_ms(lambda: launch(cot), 20), "bwd_device_ms": graph_ms(lambda: launch(cot)),
+        "fwd_bytes": fwd_bytes, "bwd_bytes": bwd_bytes,
+        "fwd_bound_ms": fwd_bytes / bw * 1e3, "bwd_bound_ms": bwd_bytes / bw * 1e3,
+        "plain_fwd_ms": cuda_ms(lambda: render_mod._render_fwd_math(v, vi, index_img, "plain", y_offset), 5),
+        "plain_bwd_ms": cuda_ms(
+            lambda: render_mod._render_bwd_math(v, vi, index_img, grad_depth, grad_bary, "plain", y_offset), 5),
+        "replaced_fwd_ms": cuda_ms(lambda: render_mod._render_fwd_math(v, vi, index_img, "auto", y_offset), 5),
+        "replaced_bwd_ms": cuda_ms(
+            lambda: render_mod._render_bwd_math(v, vi, index_img, grad_depth, grad_bary, "auto", y_offset), 5),
+        "modeled_atomics": modeled_render_atomics(index_img, vi.shape[1]),
+    }
+
+
+def render_frames(dev) -> dict:
+    """R1's inputs at the benchmark's sizes: inverse8's frame (8 views of
+    1024^2 of the 161^2 grid through transform, one vi for all) and a card's
+    block of multiview4k.rows4 (rows [1024, 2048) of 8 cameras of 4096^2,
+    the 226^2 grid moved by up to 3 px each, y_offset 1024). Each: (v, vi,
+    index, y_offset)."""
+    import drtk_tpu_torch as tt
+    from drtk_tpu_torch.ops.rasterize import broadcast_vi
+    from drtk_tpu_torch.scenes import avatar4k_scene_arrays, inverse8_scene_arrays
+
+    s = {k: torch.from_numpy(a).to(dev) for k, a in inverse8_scene_arrays(1024, 161, 8, tex_size=8).items()}
+    cams = {k: s[k] for k in CAMS}
+    with torch.no_grad():
+        v8 = tt.transform(s["v_world"].expand(8, -1, -1), **cams).contiguous()
+    vi8 = broadcast_vi(s["vi"], 8)
+    frames = {"inverse8 frame": (v8, vi8, tt.rasterize(v8, vi8, 1024, 1024), 0)}
+    a = avatar4k_scene_arrays(AV_HW, AV_GN, 16)
+    shift = np.random.RandomState(4).uniform(-3, 3, (8, 1, 2))
+    vr = torch.from_numpy((a["v"] + np.concatenate([shift, np.zeros((8, 1, 1))], -1)).astype(np.float32)).to(dev)
+    vir = broadcast_vi(torch.from_numpy(a["vi"]).to(dev), 8)
+    frames["rows4 block"] = (vr, vir, tt.rasterize(vr, vir, 1024, AV_HW, y_offset=1024, full_height=AV_HW), 1024)
+    return frames
+
+
+def render_phase(bw) -> dict:
+    """R1 against the plain version on ``render_frames``; a record each."""
+    t_phase = time.perf_counter()
+    recs = {}
+    for label, (v, vi, idx, y0) in render_frames(torch.device("cuda")).items():
+        recs[label] = r1_record(label, v, vi, idx, y0, bw)
+        emit({"phase": "R1 vs plain", **recs[label]})
+    emit({"phase": "R1 checks", "phase_seconds": time.perf_counter() - t_phase})
+    return recs
+
+
 def row_sharded_phase() -> dict:
     """The row-sharded step (drtk_tpu_torch.parallel.spmd) on the textured
     scene at 1024^2: SHARDED_RANKS ranks spawned once (``sharded_rank``) run
@@ -673,6 +790,9 @@ def main() -> int:
         # The row-sharded step alone, for a machine with a card per rank
         # (NCCL): the one phase that spans cards.
         row_sharded_phase()
+        return finish(smi)
+    if sys.argv[1:] == ["--render-only"]:
+        render_phase(bw)  # kernel R1 alone, at the benchmark's sizes
         return finish(smi)
 
     v, vi, vt, tex = make_scene(H, W, GN, device=dev)
@@ -775,9 +895,11 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = tt.kernel_launch_counts()
     n_steps = WARMUP + STEPS
-    if launches != {"B1 rasterize": n_steps, "B2 gather_rows": 2 * n_steps, "B3 scatter_rows": 0,
-                    "B4 window_accum": 0, "B5 rasterize_lines": 0, "E1 edge_grad": 0, "M1 mipmap_sample": 0}:
-        raise AssertionError(f"main path launches {launches} over {n_steps} steps, expected 1 B1 and 2 B2 per step")
+    if launches != {"B1 rasterize": n_steps, "B2 gather_rows": n_steps, "B3 scatter_rows": 0,
+                    "B4 window_accum": 0, "B5 rasterize_lines": 0, "E1 edge_grad": 0, "M1 mipmap_sample": 0,
+                    "R1 render": n_steps}:
+        raise AssertionError(f"main path launches {launches} over {n_steps} steps, expected 1 B1, 1 B2 and 1 R1 "
+                             "per step")
     peak = torch.cuda.max_memory_allocated()
     per_stage = [stage_ms(marks) for marks in step_marks[WARMUP:]]
     step_ms = [sum(s.values()) for s in per_stage]
@@ -820,6 +942,10 @@ def main() -> int:
         "max_abs_bary_err_vs_render_ref": bary_err, "profile": profile,
     })
     peaks = {"forward": peak}
+
+    # 5b. R1 vs plain at the benchmark's sizes: inverse8's frame and a rows4
+    # block.
+    r1 = render_phase(bw)
 
     # 6. B3 vs plain: rows from a seeded generator on the textured scene's
     # index image (and, after phase 13, on the inverse8 step's), with the
@@ -1157,10 +1283,10 @@ def main() -> int:
     # 8. The main path of this slice: the fitting step at full size, with
     # gradients to v, vt and tex, then bench_textured's v-only gradient.
     expected = {
-        ("v", "vt", "tex"): {"B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 2, "B4 window_accum": 1,
-                             "B5 rasterize_lines": 0, "E1 edge_grad": 1, "M1 mipmap_sample": 0},
-        ("v",): {"B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 1, "B4 window_accum": 0,
-                 "B5 rasterize_lines": 0, "E1 edge_grad": 1, "M1 mipmap_sample": 0},
+        ("v", "vt", "tex"): {"B1 rasterize": 1, "B2 gather_rows": 2, "B3 scatter_rows": 1, "B4 window_accum": 1,
+                             "B5 rasterize_lines": 0, "E1 edge_grad": 1, "M1 mipmap_sample": 0, "R1 render": 2},
+        ("v",): {"B1 rasterize": 1, "B2 gather_rows": 2, "B3 scatter_rows": 0, "B4 window_accum": 0,
+                 "B5 rasterize_lines": 0, "E1 edge_grad": 1, "M1 mipmap_sample": 0, "R1 render": 2},
     }
     fit = {}
     for wrt, per_step in expected.items():
@@ -1359,8 +1485,8 @@ def main() -> int:
     # the same cameras; then held against the plain pipeline on the kernel's
     # index image, each side from a copy of the current parameters with an
     # optimizer of its own. Phase 16 runs it through lenses.
-    inv_per_step = {"B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 1, "B4 window_accum": 1,
-                    "B5 rasterize_lines": 0, "E1 edge_grad": 1, "M1 mipmap_sample": 0}
+    inv_per_step = {"B1 rasterize": 1, "B2 gather_rows": 2, "B3 scatter_rows": 0, "B4 window_accum": 1,
+                    "B5 rasterize_lines": 0, "E1 edge_grad": 1, "M1 mipmap_sample": 0, "R1 render": 2}
 
     def multiview_step(label, step_cams, steps, e1_timed=False) -> tuple[dict, torch.Tensor, torch.Tensor]:
         """The step's record, and the current vertices in pixel space and
@@ -1494,8 +1620,8 @@ def main() -> int:
     t_phase = time.perf_counter()
     mv_levels = [torch.from_numpy(x).to(dev) for x in box_pyramid(inv["tex_gt"].cpu().numpy(), 4)]
     mv_w = torch.randn((INV_VIEWS, 4, INV_HW, INV_HW), generator=gen, device=dev)
-    mv_per_call = {"B1 rasterize": 1, "B2 gather_rows": 6, "B3 scatter_rows": 1, "B4 window_accum": 0,
-                   "B5 rasterize_lines": 0, "E1 edge_grad": 1, "M1 mipmap_sample": 2}
+    mv_per_call = {"B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 0, "B4 window_accum": 0,
+                   "B5 rasterize_lines": 0, "E1 edge_grad": 1, "M1 mipmap_sample": 2, "R1 render": 2}
 
     def mipmap_views(impl="auto", index_img=None, ev=None):
         vw = inv["v_world"].detach().requires_grad_()
@@ -1705,13 +1831,12 @@ def main() -> int:
     av_opt = torch.optim.Adam(av_leaves, lr=1e-3)
     av_args = (av["vi"], av["vt"], av["ray_o"], av["ray_d"], AV_HW, AV_BANDS)
     av_faces, hb = int(av["vi"].shape[0]), AV_HW // AV_BANDS
-    # per band: B1, B2 (render K=9, interpolate K=6) and M1 (the mipmap) in
-    # the forward and again in its recompute; B2 in interpolate's and
-    # render's backward; E1 in edge_grad's; B3 in render's backward; M1 in
-    # the mipmap's backward (no B4).
-    av_per_step = {"B1 rasterize": 2 * AV_BANDS, "B2 gather_rows": 6 * AV_BANDS, "B3 scatter_rows": AV_BANDS,
+    # per band: B1, R1 (render), B2 (interpolate K=6) and M1 (the mipmap) in
+    # the forward and again in its recompute; B2 in interpolate's backward;
+    # R1 in render's; E1 in edge_grad's; M1 in the mipmap's (no B3, no B4).
+    av_per_step = {"B1 rasterize": 2 * AV_BANDS, "B2 gather_rows": 3 * AV_BANDS, "B3 scatter_rows": 0,
                    "B4 window_accum": 0, "B5 rasterize_lines": 0, "E1 edge_grad": AV_BANDS,
-                   "M1 mipmap_sample": 3 * AV_BANDS}
+                   "M1 mipmap_sample": 3 * AV_BANDS, "R1 render": 3 * AV_BANDS}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tt.reset_kernel_launch_counts()
@@ -1861,7 +1986,7 @@ def main() -> int:
     from drtk_tpu_torch.ops import interpolate as interp_mod
 
     im_per_call = {"B1 rasterize": 0, "B2 gather_rows": 2, "B3 scatter_rows": 2, "B4 window_accum": 0,
-                   "B5 rasterize_lines": 0, "E1 edge_grad": 0, "M1 mipmap_sample": 0}
+                   "B5 rasterize_lines": 0, "E1 edge_grad": 0, "M1 mipmap_sample": 0, "R1 render": 0}
     im_launches = {k: 0 for k in im_per_call}
     im_scenes = {"textured": (v, vi, index_img),
                  "inverse8": (inv_v_pix.detach(), inv["vi"], idx_k)}
@@ -1966,20 +2091,18 @@ def main() -> int:
     peaks["row-sharded step rank 0"] = sharded_rank0["peak_mem_bytes"]
 
     # 14. The kernels, with the numbers of this run; times per fitting step
-    # (B2: K=9 and K=6 in the forward, again in the backward; B3: K=9 in
-    # render's backward, K=6 in interpolate's; E1 once, the whole edge_grad
-    # backward, in verts mode). B2's K=16 launches and B3 on edge_grad's rows
-    # are checks of B2 and B3 alone: since E1, no step makes them.
+    # (B2: K=6 in interpolate's forward and backward; B3: K=6 in
+    # interpolate's backward; E1 once, the whole edge_grad backward, in verts
+    # mode; R1 once each way, render's). B2's K=9 and K=16 launches and B3's
+    # K=9 ones and on edge_grad's rows are checks of B2 and B3 alone: since
+    # E1 and R1, no step makes them.
     b2_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "library_device_ms")
 
     def b2_step(key, recs=b2):
-        return 2 * recs[9][key] + 2 * recs[6][key]
+        return 2 * recs[6][key]
 
     def b3_step(key):
-        return b3[9][key] + b3[6][key]
-
-    def b3_inv_step(key):  # B3 at K=9 in render's backward
-        return b3_inv[9][key]
+        return b3[6][key]
 
     by_path = {"fit_step": main_launches, "inverse8_step": inv_launches, "wireframe": wire_launches,
                "avatar4k": av_launches, "fisheye62_step": fish["launches"], "lens_list_step": mixed["launches"],
@@ -2002,7 +2125,7 @@ def main() -> int:
                                              "pairs", "big_list", "bins_bytes")} for sc, r in b1.items()}},
         {"name": "B2 segment_rows._gather_kernel", "route": "cuda",
          "source": "drtk_tpu_torch/csrc/gather_rows.cu", "replaces": "drtk_tpu/ops/segment_rows.py:359",
-         "launches": main_launches["B2 gather_rows"], "launches_per_step": 4, "max_abs_err": 0.0,
+         "launches": main_launches["B2 gather_rows"], "launches_per_step": 2, "max_abs_err": 0.0,
          "ms": b2_step("ms"), "device_ms": b2_step("device_ms"), "plain_ms": b2_step("plain_ms"),
          "bound_ms": b2_step("bound_ms"), "bound_by": "bytes", "library_ms": b2_step("library_ms"),
          "library_device_ms": b2_step("library_device_ms"),
@@ -2012,12 +2135,11 @@ def main() -> int:
                                             ("mipmap_views_uv_derivative", b2_mv))}},
         {"name": "B3 segment_rows._accumulate_kernel", "route": "cuda",
          "source": "drtk_tpu_torch/csrc/scatter_rows.cu", "replaces": "drtk_tpu/ops/segment_rows.py:129",
-         "launches": main_launches["B3 scatter_rows"], "launches_per_step": 2,
+         "launches": main_launches["B3 scatter_rows"], "launches_per_step": 1,
          "max_abs_err": max(r["max_abs_err"] for recs in (b3, b3_inv, {9: b3_av}) for r in recs.values()),
          "ms": b3_step("ms"), "device_ms": b3_step("device_ms"), "plain_ms": b3_step("plain_ms"),
          "bound_ms": b3_step("bound_ms"), "bound_by": "bytes", "library_ms": b3_step("library_ms"),
          "library_device_ms": b3_step("library_device_ms"),
-         "inverse8_step": {k: b3_inv_step(k) for k in b3_keys},
          "per_launch": {image: {k_dim: {k: r[k] for k in b3_keys} for k_dim, r in recs.items()}
                         for image, recs in (("textured", b3), ("inverse8", b3_inv),
                                             ("avatar4k_edge_grad_band0", {9: b3_av}))}},
@@ -2054,9 +2176,14 @@ def main() -> int:
          **{k: m1_av[k] for k in ("ms", "device_ms", "bwd_ms", "bwd_device_ms", "plain_ms", "bound_ms",
                                   "bwd_bound_ms", "rel_err", "window_adds", "fallback_adds")},
          "bound_by": "bytes", "library_ms": None, "mipmap_views": m1_mv},
+        {"name": "R1 render", "route": "cuda", "source": "drtk_tpu_torch/csrc/render.cu",
+         "replaces": "drtk_tpu/ops/render.py:69 _render_fwd_math and :118 _render_core_bwd (B2's K=9 gather + XLA, "
+                     "B3's accumulate + the vertex scatter)",
+         "launches": main_launches["R1 render"], "launches_per_step": 2, "bound_by": "bytes", "library_ms": None,
+         "by_input": r1},
     ]
     for row, key in zip(kernels, ("B1 rasterize", "B2 gather_rows", "B3 scatter_rows", "B4 window_accum",
-                                  "B5 rasterize_lines", "E1 edge_grad", "M1 mipmap_sample")):
+                                  "B5 rasterize_lines", "E1 edge_grad", "M1 mipmap_sample", "R1 render")):
         row["launches_by_path"] = paths(key)
     emit({"phase": "peak memory by path", "peak_mem_bytes": peaks,
           "edge_grad_backward_alone": {path: r["peak_mem_bytes"] for path, r in eg_bwd.items()}})

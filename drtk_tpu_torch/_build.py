@@ -25,7 +25,7 @@ __all__ = ["BUILD_DIR", "SOURCES", "build_all", "check", "entry", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "drtk_tpu_torch"
-SOURCES = ("edge_grad", "gather_rows", "mipmap_sample", "rasterize", "rasterize_lines", "scatter_rows",
+SOURCES = ("edge_grad", "gather_rows", "mipmap_sample", "rasterize", "rasterize_lines", "render", "scatter_rows",
            "window_accum")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,30 +1,40 @@
 """Depth and perspective-correct barycentric rendering (counterpart of
 ``drtk_tpu/ops/render.py``).
 
-Per pixel, the three vertices of the triangle in ``index_img`` arrive as one
-9-float row through :func:`gather_rows_by_index` (kernel B2 on the card);
-2-D barycentrics come from edge cross products and become
-perspective-correct 3-D barycentrics ``bary_3D_i = (1/z_i) * lambda_i *
-depth`` with ``depth = 1 / epsclamp(sum_i lambda_i / z_i)``. Background
-pixels (index -1) output zeros.
+2-D barycentrics come from edge cross products of each pixel's triangle
+(the one in ``index_img``) and become perspective-correct 3-D barycentrics
+``bary_3D_i = (1/z_i) * lambda_i * depth`` with ``depth = 1 /
+epsclamp(sum_i lambda_i / z_i)``. Background pixels (index -1) output
+zeros.
 
 The backward is the clamp-aware VJP of the JAX package
 (``_render_core_bwd``): every ``epsclamp`` site that clamped (``den``, ``z``,
-``depth_inv``) kills its gradient path. The per-pixel vertex rows are
-gathered again through kernel B2 rather than saved from the forward (one
-more launch, 38 MB less memory at 1024^2); the per-pixel [N, H, W, 9]
-gradient goes to face rows through kernel B3 and from there to vertices
-with ``index_add_``.
+``depth_inv``) kills its gradient path.
+
+On CUDA tensors both directions are kernel R1 (``csrc/render.cu``), one
+launch each: a thread per pixel computes the function (forward) or
+recomputes it and applies its VJP (backward) in registers and adds the
+pixel's nine values to its face's row, which a second, small pass of the
+same launch folds into the vertices; no per-pixel row reaches device
+memory. On CPU tensors and with ``impl="plain"`` the plain version runs:
+the three vertices of each pixel's triangle arrive as one 9-float row
+through :func:`gather_rows_by_index` (B2's plain gather), eager ops compute
+the function, and the backward gathers the rows again (rather than saving
+them from the forward), forms the per-pixel [N, H, W, 9] gradient, sums it
+to face rows (B3's plain scatter) and from there to vertices with
+``index_add_``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import operator
 from typing import Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from drtk_tpu_torch import tracing
+from drtk_tpu_torch import _build, tracing
 from drtk_tpu_torch.ops.math import autocast_f32, epsclamp
 from drtk_tpu_torch.ops.rasterize import broadcast_vi
 from drtk_tpu_torch.ops.segment_rows import gather_rows_by_index, scatter_rows_to_faces
@@ -170,6 +180,106 @@ def _render_bwd_math(v, vi, index_img, grad_depth_img, grad_bary_img, impl="auto
     return _pixels_to_verts(grad_pix, index_img, vi, v.shape[1], impl)
 
 
+class _Shape(ctypes.Structure):
+    """R1's launch scalars (``struct Shape`` of ``csrc/render.cu``):
+    extents, y_offset, the batch strides of v and vi and the strides of the
+    cotangents (in elements)."""
+
+    _fields_ = (
+        [(k, ctypes.c_int32) for k in ("n_batch", "h", "w", "n_verts", "n_faces", "y_offset")]
+        + [(k, ctypes.c_int64) for k in ("v_sn", "vi_sn", "gd_sn", "gd_sh", "gd_sw", "gb_sn", "gb_sc", "gb_sh",
+                                         "gb_sw")]
+    )
+
+
+_C_ENTRY = {
+    torch.float32: ("drtk_render_fwd_f32", "drtk_render_bwd_f32"),
+    torch.float64: ("drtk_render_fwd_f64", "drtk_render_bwd_f64"),
+}
+_ARGTYPES = (
+    [ctypes.c_void_p] * 5 + [ctypes.POINTER(_Shape), ctypes.c_void_p],
+    [ctypes.c_void_p] * 7 + [ctypes.POINTER(_Shape), ctypes.c_void_p],
+)
+_MAX_BATCH = 65535  # R1 takes the batch from blockIdx.y
+
+
+def _takes_r1(impl: str, device: torch.device) -> bool:
+    """R1's dispatch, as every kernel of the port dispatches: the kernel for
+    a CUDA tensor under impl="auto", the plain version for impl="plain" or
+    a CPU tensor."""
+    if impl == "auto" and device.type == "cuda":
+        return True
+    if impl == "plain" or (impl == "auto" and device.type == "cpu"):
+        return False
+    raise ValueError(f"render: impl {impl!r} on device {device}")
+
+
+def _batch_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [N, K, 3] itself where each batch's rows are contiguous (R1
+    reads the batch axis through its stride: an expanded ``vi``), else a
+    contiguous copy."""
+    return x if x.stride(2) == 1 and (x.shape[1] <= 1 or x.stride(1) == 3) else x.contiguous()
+
+
+def _r1_launch(entry, stream, v, vi, index_img, y_offset: int, cotangents=None):
+    """Call R1's forward (``cotangents`` None) or backward C entry
+    (``entry(direction)``, looked up once the checks pass) on ``stream``
+    for tensors of one device and dtype. Returns (depth [N, H, W], bary
+    [N, 3, H, W]), or the vertex gradient [N, V, 3] from ``cotangents`` =
+    (grad_depth [N, H, W], grad_bary [N, 3, H, W]), either None for
+    zeros."""
+    n, h, w = index_img.shape
+    n_verts, f_cnt = v.shape[1], vi.shape[1]
+    if v.shape != (n, n_verts, 3) or vi.shape != (n, f_cnt, 3):
+        raise ValueError(f"render kernel: v [N, V, 3] and vi [N, F, 3] with the index's N = {n}, got "
+                         f"{tuple(v.shape)} and {tuple(vi.shape)}")
+    if not index_img.is_contiguous():
+        raise ValueError("render kernel: the index image must be contiguous")
+    if n > _MAX_BATCH or max(h * w, n_verts * 3, f_cnt * 3) >= 2**31:
+        raise ValueError(f"render kernel: at most {_MAX_BATCH} batches and 32-bit offsets within a batch, got "
+                         f"N={n}, H={h}, W={w}, V={n_verts}, F={f_cnt}")
+    grad_depth, grad_bary = (None, None) if cotangents is None else cotangents
+    for name, t, want in (("grad_depth", grad_depth, (n, h, w)), ("grad_bary", grad_bary, (n, 3, h, w))):
+        if t is not None and t.shape != want:
+            raise ValueError(f"render kernel: {name} must be {want}, got {tuple(t.shape)}")
+    v, vi = _batch_rows(v), _batch_rows(vi)
+    gd_s = [0] * 3 if grad_depth is None else list(grad_depth.stride())
+    gb_s = [0] * 4 if grad_bary is None else list(grad_bary.stride())
+    shape = _Shape(n, h, w, n_verts, f_cnt, y_offset, v.stride(0), vi.stride(0), *gd_s, *gb_s)
+    inputs = (v.data_ptr(), vi.data_ptr(), index_img.data_ptr())
+    if cotangents is None:
+        depth = torch.empty((n, h, w), dtype=v.dtype, device=v.device)
+        bary = torch.empty((n, 3, h, w), dtype=v.dtype, device=v.device)
+        err = entry(0)(*inputs, depth.data_ptr(), bary.data_ptr(), ctypes.byref(shape), stream)
+        out = depth, bary
+    else:  # the face rows R1 adds to and the vertex gradient it folds them into, zeroed by one fill
+        scratch = torch.zeros(n * f_cnt * 9 + n * n_verts * 3, dtype=v.dtype, device=v.device)
+        face_rows, out = scratch[: n * f_cnt * 9], scratch[n * f_cnt * 9:].view(n, n_verts, 3)
+        err = entry(1)(*inputs, *(None if t is None else t.data_ptr() for t in (grad_depth, grad_bary)),
+                       face_rows.data_ptr(), out.data_ptr(), ctypes.byref(shape), stream)
+    _build.check("render", err, "render kernel")
+    tracing.launched("R1 render")
+    return out
+
+
+def _r1_cuda(v, vi, index_img, y_offset: int, cotangents=None):
+    """Launch R1 on the tensors' device and current stream (the forward, or
+    with ``cotangents`` the backward; see :func:`_r1_launch`)."""
+    if v.dtype not in _C_ENTRY:
+        raise TypeError(f"render kernel: no kernel for {v.dtype} vertices")
+    if index_img.dtype != torch.int32 or vi.dtype != torch.int32:
+        raise TypeError(f"render kernel: expected int32 index and vi, got {index_img.dtype} and {vi.dtype}")
+    grads = [t for t in cotangents or () if t is not None]
+    if any(t.dtype != v.dtype for t in grads):
+        raise TypeError(f"render kernel: the cotangents must be {v.dtype}")
+    if v.device.type != "cuda" or any(t.device != v.device for t in (vi, index_img, *grads)):
+        raise ValueError("render kernel: every tensor must lie on one CUDA device")
+    return _r1_launch(
+        lambda direction: _build.entry("render", _C_ENTRY[v.dtype][direction], _ARGTYPES[direction]),
+        torch.cuda.current_stream(v.device).cuda_stream, v, vi, index_img, y_offset, cotangents,
+    )
+
+
 class _Render(torch.autograd.Function):
     @staticmethod
     def forward(ctx, v, vi, index_img, impl, y_offset):
@@ -187,6 +297,28 @@ class _Render(torch.autograd.Function):
             return grad_v, None, None, None, None
 
 
+class _RenderKernel(torch.autograd.Function):
+    """render through R1, one launch each way; the backward recomputes the
+    function from the saved v, vi and index (once differentiable)."""
+
+    @staticmethod
+    def forward(ctx, v, vi, index_img, y_offset):
+        ctx.save_for_backward(v, vi, index_img)
+        ctx.y_offset = y_offset
+        ctx.set_materialize_grads(False)  # an unused output's cotangent stays None: R1 reads zeros
+        return _r1_cuda(v, vi, index_img, y_offset)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_depth, grad_bary):
+        with tracing.span("render_bwd"):
+            v, vi, index_img = ctx.saved_tensors
+            grad_v = None
+            if ctx.needs_input_grad[0] and (grad_depth is not None or grad_bary is not None):
+                grad_v = _r1_cuda(v, vi, index_img, ctx.y_offset, (grad_depth, grad_bary))
+            return grad_v, None, None, None
+
+
 def render(
     v: torch.Tensor, vi: torch.Tensor, index_img: torch.Tensor, impl: str = "auto", y_offset: int = 0
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -196,8 +328,10 @@ def render(
         v: [N, V, 3] pixel-space vertex positions (x_pix, y_pix, z_cam).
         vi: [N, F, 3] or [F, 3] int32 triangle indices.
         index_img: [N, H, W] int32 triangle index image (-1 = background).
-        impl: "auto" gathers the face rows with kernel B2 on CUDA tensors;
-            "plain" uses the plain gather on any device.
+        impl: "auto" runs kernel R1 on CUDA tensors, one launch forward and
+            one backward (that backward is once differentiable); "plain"
+            runs the plain version on any device, which CPU tensors take
+            under "auto" too.
         y_offset: global row of ``index_img``'s first row, for row-tile
             rendering: the pixel grid is rows ``[y_offset, y_offset + H)``,
             forward and backward, so a tile equals those rows of the
@@ -213,8 +347,11 @@ def render(
     vi = broadcast_vi(vi, v.shape[0])
     if index_img.ndim != 3:
         raise ValueError(f"render: expected index_img of shape [N, H, W], got {tuple(index_img.shape)}")
+    y_offset = operator.index(y_offset)
     with tracing.span("render"):
-        return _Render.apply(v, vi, index_img, impl, operator.index(y_offset))
+        if _takes_r1(impl, v.device):
+            return _RenderKernel.apply(v, vi, index_img.contiguous(), y_offset)
+        return _Render.apply(v, vi, index_img, impl, y_offset)
 
 
 def render_ref(

@@ -48,7 +48,7 @@ __all__ = [
 
 # The hand-written kernels, by the names kernel_launch_counts() gives them.
 KERNELS = ("B1 rasterize", "B2 gather_rows", "B3 scatter_rows", "B4 window_accum", "B5 rasterize_lines",
-           "E1 edge_grad", "M1 mipmap_sample")
+           "E1 edge_grad", "M1 mipmap_sample", "R1 render")
 _launches = dict.fromkeys(KERNELS, 0)
 _active: Tracer | None = None
 

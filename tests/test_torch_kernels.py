@@ -33,7 +33,11 @@ plain pipeline's to 1e-4 of the largest magnitude, its loss to 1e-5; so
 do the inverse8 step's, to the world vertices and the texture.
 grid_scatter's output agrees with its float64 oracle, and filter2d's
 forward and gradient with float64 (cuDNN's TF32 allowed), to 1e-5 of the
-largest magnitude.
+largest magnitude. Kernel R1 (render) rounds every operation on its own in
+the plain version's order: its forward equals the plain version
+(torch.equal); its backward sums each vertex's pixels with atomics, in
+another order than the plain scatter (as B3's do): within 1e-5 (f64 1e-12)
+of the plain gradient's largest magnitude (``render_bwd_bound``).
 """
 
 import numpy as np
@@ -47,6 +51,7 @@ import drtk_tpu_torch as tt
 from drtk_tpu_torch.ops import grid_sample as gs
 from drtk_tpu_torch.ops import mipmap_grid_sample as mipmap_mod
 from drtk_tpu_torch.ops import rasterize_cuda, segment_rows, window_accum
+from drtk_tpu_torch.ops import render as render_mod
 from drtk_tpu_torch.ops.rasterize import (
     _canvas_cull,
     _rasterize_lines_plain,
@@ -130,7 +135,7 @@ B1_SCENES = list(SCENES)
 BINNING_SCENES = ["span_s", "span_s_plus_1", "tile_borders"]
 NO_LAUNCHES = {
     "B1 rasterize": 0, "B2 gather_rows": 0, "B3 scatter_rows": 0, "B4 window_accum": 0, "B5 rasterize_lines": 0,
-    "E1 edge_grad": 0, "M1 mipmap_sample": 0,
+    "E1 edge_grad": 0, "M1 mipmap_sample": 0, "R1 render": 0,
 }
 
 
@@ -936,6 +941,84 @@ def test_rows_hw_changes_no_result():
         window_accum.window_accumulate(rows_kp, iy_t, ix_t, t_h, t_w, rows_hw=(256, 256))
 
 
+def _clamp_faces():
+    """Faces on which each epsclamp of render fires, then one plain face:
+    collinear corners and a ~1e-9-pixel sliver (den: the first two),
+    corners at z = 0, -0.0 and 1e-9 (z), corners behind z = 0, and a face
+    at z = 1e20 (depth_inv, in float32 and float64)."""
+    return np.float64([
+        [[10, 10, 5], [20, 20, 5], [30, 30, 5]],
+        [[5, 5, 4], [5 + 1e-9, 5, 4], [5, 5 + 1e-9, 4]],
+        [[0, 0, 0.0], [40, 0, -0.0], [0, 20, 3]],
+        [[2, 3, 1e-9], [50, 8, 2], [9, 30, 6]],
+        [[0, 0, -2], [40, 0, -3], [0, 20, -4]],
+        [[0, 0, 1e20], [40, 0, 1e20], [0, 20, 1e20]],
+        [[-5, -4, 3], [45, 6, 4], [12, 26, 6]],
+    ])
+
+
+RENDER_CASES = ["soup", "band", "clamps"]
+
+
+def render_case(case, dtype, seed=0):
+    """render's inputs on the CPU: v [N, V, 3], vi, index [N, H, W], the
+    index's first global row and cotangents (grad_depth [N, H, W],
+    grad_bary [N, 3, H, W]). "soup": 2 views of 20 x 40 (ragged 32 x 8
+    tiles) from the plain rasterizer, one vi for both (an expanded [N, F, 3]
+    view), an index of F and F + 5 (clamped to F - 1) and a face with
+    vertex ids -3 and V + 2 (clamped). "band": rows [13, 25) of a 3-view
+    soup of 40 rows, y_offset 13. "clamps": _clamp_faces in 2 views of
+    20 x 40, per-view vi with ids past V in view 1, each pixel a random face
+    (or background, or up to F + 1). A few pixels have zero cotangents."""
+    rng = np.random.RandomState(seed)
+    if case == "clamps":
+        faces = _clamp_faces()
+        n, h, w, y0, f_cnt = 2, 20, 40, 0, faces.shape[0]
+        v = np.concatenate([faces.reshape(1, -1, 3), faces.reshape(1, -1, 3) + [[[1.5, -0.5, 0.0]]]])
+        vi = np.arange(3 * f_cnt, dtype=np.int32).reshape(1, f_cnt, 3).repeat(n, 0)
+        vi[1, f_cnt - 1] = [-1, 3 * f_cnt, 3 * f_cnt + 7]
+        index = rng.randint(-1, f_cnt + 2, (n, h, w)).astype(np.int32)
+        vi_t = torch.from_numpy(vi)
+    else:
+        n, full_h, h, y0 = (2, 20, 20, 0) if case == "soup" else (3, 40, 12, 13)
+        w = 40
+        sc = _soup(n, 40, 56, full_h, w, seed + 1)
+        v = sc["v"].astype(np.float64)
+        sc["vi"][5] = [-3, 40 + 2, 7]
+        vi_t = torch.from_numpy(sc["vi"])
+        index = tt.rasterize(torch.from_numpy(sc["v"]), vi_t, h, w, y_offset=y0, full_height=full_h).numpy()
+        index[0, 1, :2] = [56, 56 + 5]
+        vi_t = broadcast_vi(vi_t, n)
+    grad_depth = rng.randn(n, h, w)
+    grad_bary = rng.randn(n, 3, h, w)
+    grad_depth[:, 0, :3] = 0.0
+    grad_bary[:, :, 0, :3] = 0.0
+    return {
+        "v": torch.from_numpy(v).to(dtype), "vi": vi_t, "index": torch.from_numpy(index), "y_offset": y0,
+        "grad_depth": torch.from_numpy(grad_depth).to(dtype), "grad_bary": torch.from_numpy(grad_bary).to(dtype),
+    }
+
+
+def render_bwd_bound(got, want, dtype, case="soup"):
+    """R1's backward against the plain one: within 1e-5 (float32) or 1e-12
+    (float64) of the plain gradient's largest magnitude; on "clamps", whose
+    faces share no vertex, also of the largest among the vertices of each
+    face whose den does not clamp (_clamp_faces from the third on). A face
+    whose den clamps has barycentrics of up to 1e18, whose three-term sums
+    cancel to a few units: torch sums them in another order on the card than
+    on the CPU, and their gradient, up to 1e35, reaches only the overall
+    bound. The atomics sum a vertex's pixels in another order than the plain
+    scatter, as kernel B3's do, and change from run to run."""
+    limit = 1e-12 if dtype == torch.float64 else 1e-5
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert bool(torch.isfinite(want).all()) and bool((want != 0).any())
+    err = (got - want).abs()
+    if case == "clamps":
+        for face in range(2, want.shape[1] // 3):
+            part = slice(3 * face, 3 * face + 3)
+            assert err[:, part].max() <= limit * want[:, part].abs().max(), face
+    assert err.max() <= limit * want.abs().max()
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
@@ -1016,7 +1099,7 @@ def test_render_textured_kernels_match_plain(cuda_device):
     tt.reset_kernel_launch_counts()
     img, idx = render_textured(v, vi, vt, tex, 128, 256)
     torch.cuda.synchronize()
-    assert tt.kernel_launch_counts() == {**NO_LAUNCHES, "B1 rasterize": 1, "B2 gather_rows": 2}
+    assert tt.kernel_launch_counts() == {**NO_LAUNCHES, "B1 rasterize": 1, "B2 gather_rows": 1, "R1 render": 1}
     img_p, idx_p = render_textured(v, vi, vt, tex, 128, 256, impl="plain")
     same = (idx == idx_p)[:, None].expand_as(img)
     assert same.float().mean() > 0.999
@@ -1101,9 +1184,9 @@ def test_fit_step_kernels_match_plain(cuda_device):
     tt.reset_kernel_launch_counts()
     loss, grads = fit_step(v, vi, vt, tex, 128, 256)
     torch.cuda.synchronize()
-    assert tt.kernel_launch_counts() == {  # edge_grad's backward is one E1 launch, no B2 or B3
-        **NO_LAUNCHES, "B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 2, "B4 window_accum": 1,
-        "E1 edge_grad": 1,
+    assert tt.kernel_launch_counts() == {  # edge_grad's backward is one E1 launch, render's R1 each way: no B2 or B3
+        **NO_LAUNCHES, "B1 rasterize": 1, "B2 gather_rows": 2, "B3 scatter_rows": 1, "B4 window_accum": 1,
+        "E1 edge_grad": 1, "R1 render": 2,
     }
     idx = tt.rasterize(v, vi, 128, 256)
     loss, grads = fit_step(v, vi, vt, tex, 128, 256, index_img=idx)
@@ -1178,8 +1261,8 @@ def test_inverse8_step_kernels_match_plain(cuda_device):
     inverse8_step(p, torch.optim.Adam(p, lr=1e-3), s["vi"], s["vt"], cams, img_gt, 64, 64)
     torch.cuda.synchronize()
     assert tt.kernel_launch_counts() == {
-        **NO_LAUNCHES, "B1 rasterize": 1, "B2 gather_rows": 4, "B3 scatter_rows": 1, "B4 window_accum": 1,
-        "E1 edge_grad": 1,
+        **NO_LAUNCHES, "B1 rasterize": 1, "B2 gather_rows": 2, "B4 window_accum": 1, "E1 edge_grad": 1,
+        "R1 render": 2,
     }
     p_k, p_p = params(), params()
     idx = tt.rasterize(tt.transform(p_k[0].detach().expand(2, -1, -1), **cams), s["vi"], 64, 64)
@@ -1658,8 +1741,8 @@ def test_mipviews_step_kernels_match_plain(cuda_device):
     torch.cuda.synchronize()
     assert [name for name, _ in marks] == ["start", *MIPVIEWS_STAGES]
     assert tt.kernel_launch_counts() == {
-        **NO_LAUNCHES, "B1 rasterize": 1, "B2 gather_rows": 6, "B3 scatter_rows": 1, "E1 edge_grad": 1,
-        "M1 mipmap_sample": 2,
+        **NO_LAUNCHES, "B1 rasterize": 1, "B2 gather_rows": 4, "E1 edge_grad": 1, "M1 mipmap_sample": 2,
+        "R1 render": 2,
     }
     snap = tracer.snapshot()
     names = {sp["name"] for sp in snap["spans"]}
@@ -1736,8 +1819,8 @@ def test_avatar4k_step_on_the_card_matches_cpu(cuda_device):
         if dev == "cuda":
             torch.cuda.synchronize()
             assert tt.kernel_launch_counts() == {
-                **NO_LAUNCHES, "B1 rasterize": 8, "B2 gather_rows": 24, "B3 scatter_rows": 4, "E1 edge_grad": 4,
-                "M1 mipmap_sample": 12,
+                **NO_LAUNCHES, "B1 rasterize": 8, "B2 gather_rows": 12, "E1 edge_grad": 4,
+                "M1 mipmap_sample": 12, "R1 render": 12,
             }
     (loss_c, grads_c), (loss_k, grads_k) = out["cpu"], out["cuda"]
     torch.testing.assert_close(loss_k.cpu(), loss_c, rtol=1e-5, atol=0)
@@ -1881,3 +1964,105 @@ def test_halo_rows_round_trip_through_the_host_under_gloo(cuda_device, tmp_path)
     import torch.multiprocessing as mp
 
     mp.spawn(_halo_rank, args=(str(tmp_path / "store"),), nprocs=2)
+
+
+# ---------------------------------------------------------------------------
+# Kernel R1 (render) on the card
+# ---------------------------------------------------------------------------
+
+
+def _hold_r1(v, vi, index, y_offset, grad_depth, grad_bary, case="soup"):
+    """R1 forward (one launch) against the plain version bit for bit, and R1
+    backward (one launch) against the plain backward to render_bwd_bound."""
+    before = tt.kernel_launch_counts()
+    depth, bary = render_mod._r1_cuda(v, vi, index, y_offset)
+    got = render_mod._r1_cuda(v, vi, index, y_offset, (grad_depth, grad_bary))
+    torch.cuda.synchronize()
+    assert tt.kernel_launch_counts() == {**before, "R1 render": before["R1 render"] + 2}
+    want_depth, want_bary = render_mod._render_fwd_math(v, vi, index, "plain", y_offset)
+    assert torch.equal(depth, want_depth) and torch.equal(bary, want_bary)
+    assert bool((index >= 0).any()) and bool((depth != 0).any())
+    want = render_mod._render_bwd_math(v, vi, index, grad_depth, grad_bary, "plain", y_offset)
+    render_bwd_bound(got, want, v.dtype, case)
+
+
+def _cotangents(index, dtype, seed):
+    gen = torch.Generator(device=index.device).manual_seed(seed)
+    n, h, w = index.shape
+    return (torch.randn((n, h, w), generator=gen, device=index.device, dtype=dtype),
+            torch.randn((n, 3, h, w), generator=gen, device=index.device, dtype=dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", RENDER_CASES)
+def test_render_kernel_matches_plain(cuda_device, case, dtype):
+    """render_case's inputs: ragged tiles, shared and per-view vi, clamped
+    indices and vertex ids, background, a band with y_offset, and every
+    epsclamp firing (the "clamps" faces)."""
+    c = {k: (x.to(cuda_device) if torch.is_tensor(x) else x) for k, x in render_case(case, dtype).items()}
+    _hold_r1(c["v"], c["vi"], c["index"], c["y_offset"], c["grad_depth"], c["grad_bary"], case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_render_kernel_on_the_inverse8_frame(cuda_device, dtype):
+    """The inverse8 cell's frame: 8 views of 1024^2 of the 161^2 grid
+    (51,200 faces) through transform, per-view vi."""
+    s = {k: torch.from_numpy(a).to(cuda_device) for k, a in inverse8_scene_arrays(1024, 161, 8, tex_size=8).items()}
+    cams = {k: s[k] for k in ("campos", "camrot", "focal", "princpt")}
+    v = tt.transform(s["v_world"].expand(8, -1, -1), **cams)
+    vi = s["vi"][None].repeat(8, 1, 1)
+    index = tt.rasterize(v, vi, 1024, 1024)
+    v = v.to(dtype)
+    _hold_r1(v, vi, index, 0, *_cotangents(index, dtype, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_render_kernel_on_an_avatar4k_band(avatar4k_frame, dtype):
+    """Rows [2048, 2112) of the avatar4k frame, as a band renders them
+    (y_offset 2048)."""
+    s, idx, _ = avatar4k_frame
+    y0, hb = AV_BAND
+    index = idx[:, y0:y0 + hb].contiguous()
+    _hold_r1(s["v"].to(dtype), broadcast_vi(s["vi"], 1), index, y0, *_cotangents(index, dtype, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_render_kernel_on_a_rows4_block(cuda_device, dtype):
+    """A card's block of the multiview4k.rows4 cell: rows [1024, 2048) of 8
+    cameras of 4096^2, each the 226^2 grid moved by its own offset of up
+    to 3 pixels, y_offset 1024."""
+    a = avatar4k_scene_arrays(4096, 226, 16)
+    shift = np.random.RandomState(4).uniform(-3, 3, (8, 1, 2))
+    v = torch.from_numpy(a["v"] + np.concatenate([shift, np.zeros((8, 1, 1))], -1)).to(cuda_device)
+    vi = broadcast_vi(torch.from_numpy(a["vi"]).to(cuda_device), 8)
+    index = tt.rasterize(v.float(), vi, 1024, 4096, y_offset=1024, full_height=4096)
+    _hold_r1(v.to(dtype), vi, index, 1024, *_cotangents(index, dtype, 3))
+
+
+@pytest.mark.cuda
+def test_render_launches_r1_once_each_way(cuda_device):
+    """One render on CUDA tensors, forward and backward: R1 once each way,
+    B2 and B3 never; the spans render and render_bwd and R1's counter in
+    the tracer; the gradient that of impl="plain"."""
+    c = {k: (x.to(cuda_device) if torch.is_tensor(x) else x) for k, x in render_case("soup", torch.float32).items()}
+    grads = {}
+    for impl in ("auto", "plain"):
+        v = c["v"].clone().requires_grad_()
+        tt.reset_kernel_launch_counts()
+        with tt.tracing.Tracer() as tracer:
+            depth, bary = tt.render(v, c["vi"], c["index"], impl=impl)
+            (depth * c["grad_depth"] + (bary * c["grad_bary"]).sum(1)).sum().backward()
+        torch.cuda.synchronize()
+        grads[impl] = v.grad
+        if impl == "auto":
+            assert tt.kernel_launch_counts() == {**NO_LAUNCHES, "R1 render": 2}
+            snap = tracer.snapshot()
+            assert [sp["name"] for sp in snap["spans"]] == ["render", "render_bwd"]
+            assert snap["counts"] == {"R1 render": 2}
+        else:
+            assert tt.kernel_launch_counts()["R1 render"] == 0
+    render_bwd_bound(grads["auto"], grads["plain"], torch.float32)

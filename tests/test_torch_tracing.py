@@ -257,7 +257,7 @@ def test_counters_and_launches():
     tt.reset_kernel_launch_counts()
     assert list(tt.kernel_launch_counts()) == ["B1 rasterize", "B2 gather_rows", "B3 scatter_rows",
                                                "B4 window_accum", "B5 rasterize_lines", "E1 edge_grad",
-                                               "M1 mipmap_sample"]
+                                               "M1 mipmap_sample", "R1 render"]
     tracing.launched("B2 gather_rows")
     tracing.count("halo_bytes", 10)  # no tracer: not kept
     assert not tracing.on()
