@@ -23,7 +23,9 @@ checked just after:
   226x226-vertex grid, 101,250 triangles, in 4 row bands recomputed in the
   backward, mipmapped shading from a 3x512^2..3x64^2 pyramid, an MSI
   background on 256^2 rays), the training step (gradients to the vertices,
-  the pyramid and the MSI texture, an Adam update), with B1 under the
+  the pyramid and the MSI texture, an Adam update), eager with its stage
+  marks and then as a fit loop calls it, replayed as one CUDA graph (its
+  ms and the graph's counters beside the eager step's), with B1 under the
   viewport, B2, E1 (the banded edge_grad backward's band 0) and B3 (that
   band's bary x g rows, from the plain stencil) held against their plain
   versions and M1 (the mipmap, forward and backward) against the
@@ -1870,6 +1872,27 @@ def main() -> int:
     per_stage = [stage_ms(marks) for marks in step_marks[AV_WARMUP:]]
     step_ms = [sum(p.values()) for p in per_stage]
     med_ms = statistics.median(step_ms)
+    av_reserved_eager = torch.cuda.max_memory_reserved()
+    # The same step unmarked, as a fit loop calls it: the first step with
+    # these tensors runs eagerly, the second captures the loss and backward
+    # as one CUDA graph, the rest replay it; CUDA events around each call.
+    graph_counts0 = tt.step_graph_counts()
+    tt.reset_kernel_launch_counts()
+    graph_events = []
+    for _ in range(AV_WARMUP + AV_STEPS):
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        avatar4k_step(av_params, av_opt, *av_args)
+        ev1.record()
+        graph_events.append((ev0, ev1))
+    torch.cuda.synchronize()
+    graph_launches = tt.kernel_launch_counts()
+    if graph_launches != av_launches:
+        raise AssertionError(f"avatar4k graphed step: launches {graph_launches}, the marked steps' {av_launches}")
+    graph_counts = {k: c - graph_counts0[k] for k, c in tt.step_graph_counts().items()}
+    if graph_counts != {"step_graph_captures": 1, "step_graph_replays": n_steps - 2, "step_graph_eager": 1}:
+        raise AssertionError(f"avatar4k graphed step: {graph_counts}")
+    graphed_ms = [a.elapsed_time(b) for a, b in graph_events[AV_WARMUP:]]
     av_profile = device_profile(lambda: avatar4k_step(av_params, av_opt, *av_args), AV_PROFILED)
     emit({
         "phase": "avatar4k step", "config": "avatar4k", "H": AV_HW, "W": AV_HW, "faces": av_faces, "bands": AV_BANDS,
@@ -1879,8 +1902,12 @@ def main() -> int:
         "mpix_per_s": AV_HW * AV_HW / (med_ms * 1e-3) / 1e6,
         **{f"{k}_ms_median": statistics.median(p[k] for p in per_stage) for k in AVATAR4K_STAGES},
         "host_ms_per_call_median": statistics.median(host_s[AV_WARMUP:]) * 1e3,
+        "graphed_step_ms_median": statistics.median(graphed_ms), "graphed_step_ms_min": min(graphed_ms),
+        "graphed_step_ms_max": max(graphed_ms), "step_graph_counts": graph_counts,
         "device_busy_ms_per_step": av_profile["device_busy_ms_per_step"] if av_profile else None,
-        "peak_mem_bytes": av_peak, "launches": av_launches, "launches_per_step": av_per_step,
+        "peak_mem_bytes": av_peak, "reserved_bytes_eager": av_reserved_eager,
+        "reserved_bytes_graphed": torch.cuda.max_memory_reserved(), "launches": av_launches,
+        "launches_per_step": av_per_step,
         "loss_first": losses[0], "loss_last": losses[-1], "nonzero_grad_entries": av_nonzero, "profile": av_profile,
     })
 

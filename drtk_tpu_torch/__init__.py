@@ -32,7 +32,8 @@ nvcc at first use; on CPU tensors their plain PyTorch versions run.
 Nothing is compiled when the package is imported. :mod:`drtk_tpu_torch.tracing`
 records the ops' and steps' spans, and the collectives' bytes, while a
 caller has a tracer entered; it always counts the kernels' launches
-(:func:`kernel_launch_counts`).
+(:func:`kernel_launch_counts`) and how the steps that replay as a CUDA
+graph ran (:func:`step_graph_counts`, :mod:`drtk_tpu_torch.step_graph`).
 """
 
 from drtk_tpu_torch.ops.edge_grad import edge_grad_estimator, edge_grad_image
@@ -76,7 +77,7 @@ from drtk_tpu_torch.pipeline import (
 )
 from drtk_tpu_torch.screen_space_uv_derivative import screen_space_uv_derivative
 from drtk_tpu_torch.transform import transform, transform_with_v_cam
-from drtk_tpu_torch.tracing import kernel_launch_counts, reset_kernel_launch_counts
+from drtk_tpu_torch.tracing import kernel_launch_counts, reset_kernel_launch_counts, step_graph_counts
 
 __all__ = [
     "FilterOptions",
@@ -119,6 +120,7 @@ __all__ = [
     "resample_filter",
     "reset_kernel_launch_counts",
     "screen_space_uv_derivative",
+    "step_graph_counts",
     "transform",
     "transform_with_v_cam",
     "upsample",

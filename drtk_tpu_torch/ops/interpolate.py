@@ -61,11 +61,13 @@ __all__ = [
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _sweep_vector(size: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """``(arange(size) * 2 + 1) / size - 1`` on ``device``, cached per
     (size, dtype, device), so a forward copies nothing from the host after
-    its first call. Callers only read it.
+    its first call. Callers only read it. Never evicted: a step's CUDA
+    graph (:mod:`drtk_tpu_torch.step_graph`) reads it by address, and one
+    vector per frame size a process renders is little.
 
     Built in numpy, in the dtype and op order of the JAX package's sweep,
     and then copied to the device. The JAX package builds it in numpy

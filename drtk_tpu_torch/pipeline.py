@@ -23,7 +23,8 @@ viewport recomputed in the backward), shaded with ``mipmap_grid_sample``
 from a mip pyramid at screen-space uv derivatives from finite differences,
 ``edge_grad_estimator_banded``, an MSI background rendered at low
 resolution and upsampled, ``mean(img**2)``, and an Adam step over the
-vertices, the pyramid and the MSI texture.
+vertices, the pyramid and the MSI texture. On the card its loss and
+gradients replay as one CUDA graph (:mod:`drtk_tpu_torch.step_graph`).
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from drtk_tpu_torch.ops.rasterize import rasterize
 from drtk_tpu_torch.ops.render import render
 from drtk_tpu_torch.parallel.banded import edge_grad_estimator_banded, map_row_bands
 from drtk_tpu_torch.screen_space_uv_derivative import screen_space_uv_derivative
+from drtk_tpu_torch.step_graph import StepGraph, StepKey, eager_reason
 from drtk_tpu_torch.transform import transform
 
 __all__ = [
@@ -597,6 +599,21 @@ def avatar4k_background(ray_o, ray_d, msi_tex, h: int) -> torch.Tensor:
         return sp.grad_out(F.interpolate(bg_img, size=(h, h), mode="bilinear", align_corners=False, antialias=False))
 
 
+# The avatar4k step's graph, and the module-level functions its loss
+# resolves when it runs: a patched one (a fault planted by the benchmark)
+# makes a new key, so a graph never replays code that has been replaced.
+_AVATAR4K_GRAPH = StepGraph()
+_AVATAR4K_CALLS = ("avatar4k_loss", "avatar4k_background", "avatar4k_band", "map_row_bands",
+                   "edge_grad_estimator_banded", "rasterize", "render", "interpolate", "mipmap_grid_sample", "msi")
+
+
+def _avatar4k_key(tensors, h: int, n_bands: int, remat: bool, device) -> StepKey:
+    """The :class:`~drtk_tpu_torch.step_graph.StepKey` of an avatar4k step
+    over ``tensors`` (the leaves, vi, vt, the rays and any index image)."""
+    calls = globals()
+    return StepKey(tensors, (h, n_bands, remat, device, *(calls[name] for name in _AVATAR4K_CALLS)))
+
+
 def avatar4k_step(params: tuple[torch.Tensor, Sequence[torch.Tensor], torch.Tensor],
                   optimizer: torch.optim.Optimizer, vi: torch.Tensor, vt: torch.Tensor, ray_o: torch.Tensor,
                   ray_d: torch.Tensor, h: int, n_bands: int = 4, remat: bool = True,
@@ -607,6 +624,12 @@ def avatar4k_step(params: tuple[torch.Tensor, Sequence[torch.Tensor], torch.Tens
     the MSI texture, and an update with ``optimizer``
     (``torch.optim.Adam(params, lr=1e-3)`` for the bench's
     ``optax.adam(1e-3)``).
+
+    The loss and the backward replay as one CUDA graph when
+    :func:`~drtk_tpu_torch.step_graph.eager_reason` allows (CUDA tensors,
+    ``impl="auto"``, no ``stage_times``, no tracer, grad mode on): the first
+    step with new tensors runs eagerly, the second captures, the later ones
+    replay; the update stays eager.
 
     Args:
         params: ``(v, levels, msi_tex)`` as for :func:`avatar4k_loss`,
@@ -620,23 +643,32 @@ def avatar4k_step(params: tuple[torch.Tensor, Sequence[torch.Tensor], torch.Tens
 
     Returns:
         (loss, grads): the detached loss before the update, and the
-        gradients ``{"v": ..., "levels": [...], "msi_tex": ...}`` it applied.
+        gradients ``{"v": ..., "levels": [...], "msi_tex": ...}`` it applied
+        (new tensors every step, graphed or not).
     """
     v, levels, msi_tex = params
     leaves = [v, *levels, msi_tex]
     if not all(t.requires_grad for t in leaves):
         raise ValueError("avatar4k_step: v, the levels and msi_tex must require gradients")
-    with tracing.span("forward"):
-        loss = avatar4k_loss(params, vi, vt, ray_o, ray_d, h, n_bands, remat, device, impl, index_img, stage_times)
-    with tracing.span("backward"):
-        grads = torch.autograd.grad(loss, leaves)
+
+    def loss_and_grads():
+        with tracing.span("forward"):
+            loss = avatar4k_loss(params, vi, vt, ray_o, ray_d, h, n_bands, remat, device, impl, index_img,
+                                 stage_times)
+        with tracing.span("backward"):
+            grads = torch.autograd.grad(loss, leaves)
+        return (loss.detach(), *grads)
+
+    inputs = [*leaves, vi, vt, ray_o, ray_d, *([] if index_img is None else [index_img])]
+    key = None if eager_reason(inputs, impl, stage_times) else _avatar4k_key(inputs, h, n_bands, remat, device)
+    loss, *grads = _AVATAR4K_GRAPH.run(loss_and_grads, key)
     tracing.mark(stage_times, "backward")
     for p, g in zip(leaves, grads):
         p.grad = g
     with tracing.span("adam"):
         optimizer.step()
     tracing.mark(stage_times, "adam")
-    return loss.detach(), {"v": grads[0], "levels": list(grads[1:-1]), "msi_tex": grads[-1]}
+    return loss, {"v": grads[0], "levels": grads[1:-1], "msi_tex": grads[-1]}
 
 
 def stage_ms(stage_times: list) -> dict[str, float]:

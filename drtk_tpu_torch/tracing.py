@@ -10,7 +10,8 @@ Nothing is recorded until a caller enters a :class:`Tracer`::
 While no tracer is entered, :func:`span` returns one shared null context
 (no CUDA event, no gradient hook, no profiler range), :func:`count` returns
 at once, and only the kernels' launch counts (:func:`launched`, read by
-:func:`kernel_launch_counts`) are kept.
+:func:`kernel_launch_counts`) and the step graphs' counts
+(:func:`step_graph_ran`, read by :func:`step_graph_counts`) are kept.
 
 While one is entered, each span records its name, its parent (the
 innermost span open when it opened), its host start and end
@@ -43,13 +44,17 @@ import torch
 
 __all__ = [
     "KERNELS", "Tracer", "bands", "count", "kernel_launch_counts", "launched", "mark", "on",
-    "reset_kernel_launch_counts", "span",
+    "reset_kernel_launch_counts", "span", "step_graph_counts", "step_graph_ran",
 ]
 
 # The hand-written kernels, by the names kernel_launch_counts() gives them.
 KERNELS = ("B1 rasterize", "B2 gather_rows", "B3 scatter_rows", "B4 window_accum", "B5 rasterize_lines",
            "E1 edge_grad", "M1 mipmap_sample", "R1 render")
 _launches = dict.fromkeys(KERNELS, 0)
+# How the steps that can take a CUDA graph ran (drtk_tpu_torch/step_graph.py):
+# captured (and replayed once), replayed, or eagerly.
+STEP_GRAPH_COUNTS = ("step_graph_captures", "step_graph_replays", "step_graph_eager")
+_step_graph = dict.fromkeys(STEP_GRAPH_COUNTS, 0)
 _active: Tracer | None = None
 
 
@@ -283,11 +288,11 @@ def count(name: str, n: int | torch.Tensor = 1) -> None:
         t.counts[name] = t.counts.get(name, 0) + n
 
 
-def launched(kernel: str) -> None:
-    """Count one launch of ``kernel`` (one of :data:`KERNELS`), also into
-    the entered tracer's counter of that name."""
-    _launches[kernel] += 1
-    count(kernel)
+def launched(kernel: str, n: int = 1) -> None:
+    """Count ``n`` launches of ``kernel`` (one of :data:`KERNELS`), also
+    into the entered tracer's counter of that name."""
+    _launches[kernel] += n
+    count(kernel, n)
 
 
 def kernel_launch_counts() -> dict[str, int]:
@@ -299,6 +304,18 @@ def reset_kernel_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     for k in _launches:
         _launches[k] = 0
+
+
+def step_graph_ran(how: str) -> None:
+    """Count one step of a step graph, ``how`` one of
+    :data:`STEP_GRAPH_COUNTS`."""
+    _step_graph[how] += 1
+
+
+def step_graph_counts() -> dict[str, int]:
+    """Steps captured (each replayed once as it was captured), replayed
+    and run eagerly by the step graphs since the process started."""
+    return dict(_step_graph)
 
 
 def bands(band_fn):
