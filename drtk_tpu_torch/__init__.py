@@ -13,7 +13,8 @@ and row banding (:func:`map_row_bands`, :func:`edge_grad_estimator_banded`)
 make up :func:`avatar4k_step`, one step of the 4K avatar fit. Lens
 distortion (radial-tangential, fisheye, Fisheye62) in :func:`transform`,
 mesh geometry in :mod:`drtk_tpu_torch.utils`, the analytic screen-space uv
-Jacobian (:func:`screen_space_uv_derivative`) that drives mipmap shading in
+Jacobian (:func:`screen_space_uv_derivative`, pinhole or through a Fisheye62
+lens; the other lenses raise there) that drives mipmap shading in
 :func:`render_mipmap_multiview` (fitted by :func:`mipviews_step`),
 :func:`grid_scatter` (the transpose of ``grid_sample``) and the alias-free
 resampling filters of ``filter2d``

@@ -14,7 +14,8 @@ The multi-view path's cameras may carry a lens (``distortion_mode``,
 ``distortion_coeff``, ``fov``), which ``transform`` applies.
 :func:`render_mipmap_multiview` shades the views with mipmaps as
 ``examples/04_rendering_meshes.py`` does: the analytic screen-space uv
-Jacobian drives ``mipmap_grid_sample``. :func:`mipviews_step` fits one
+Jacobian (pinhole, or through a Fisheye62 lens) drives
+``mipmap_grid_sample``. :func:`mipviews_step` fits one
 texture through it, its pyramid rebuilt every step (:func:`mip_pyramid`).
 
 The 4K avatar fit of ``bench.py:bench_avatar4k``: a 4096^2 frame of the
@@ -334,11 +335,14 @@ def render_mipmap_multiview(
             positions and uvs alike); vt: [1, V, 2] uvs in [0, 1].
         levels: the mip pyramid, a list of [1, C, H_i, W_i], highest
             resolution first.
-        cams: pinhole cameras, one row per view: ``campos``, ``camrot``,
-            ``focal``, ``princpt``. The uv Jacobian is the pinhole one: a
-            ``distortion_mode`` raises NotImplementedError there, as in the
-            JAX package, and cameras without ``campos``, ``camrot`` and
-            ``focal`` raise ValueError.
+        cams: the cameras, one row per view: ``campos``, ``camrot``,
+            ``focal``, ``princpt`` and, for a Fisheye62 lens,
+            ``distortion_mode`` "fisheye62", ``distortion_coeff`` and
+            ``fov`` (optional; pass it, computed once). The uv Jacobian goes
+            through the lens (:func:`~drtk_tpu_torch.utils.projection.project_points_grad`),
+            where the JAX package's is pinhole only; any other
+            ``distortion_mode`` raises NotImplementedError, and cameras
+            without ``campos``, ``camrot`` and ``focal`` raise ValueError.
         h, w: canvas size of every view.
         device, impl, index_img: as for :func:`render_multiview`.
         stage_times: as for :func:`render_multiview`, with "uv_derivative"
@@ -357,13 +361,13 @@ def render_mipmap_multiview(
 
     def sample(uv, index_img, bary):
         views = uv.shape[0]
-        # The lens goes on to project_points_grad, which raises for any
-        # distortion mode, as the JAX package's does.
+        # The lens goes on to project_points_grad, which takes Fisheye62 and
+        # raises for any other distortion mode.
         with torch.no_grad():
             jac = screen_space_uv_derivative(
                 v_world.expand(views, -1, -1), vt.expand(views, -1, -1), vi, vi, index_img, bary, index_img != -1,
                 cams["campos"], cams["camrot"], cams["focal"], cams.get("distortion_mode"),
-                cams.get("distortion_coeff"), impl=impl,
+                cams.get("distortion_coeff"), impl=impl, fov=cams.get("fov"),
             )
         tracing.mark(stage_times, "uv_derivative")
         lvls = [t.expand(views, -1, -1, -1) for t in levels]
@@ -486,8 +490,8 @@ def mipviews_step(
         params: ``(v_world [1, V, 3], tex [1, C, T, T])``, tensors that
             require gradients; updated in place by ``optimizer``.
         optimizer, vi, vt, cams, img_gt, h, w, device, impl, index_img: as
-            for :func:`inverse8_step` (pinhole cameras, as for
-            :func:`render_mipmap_multiview`).
+            for :func:`inverse8_step` (pinhole or Fisheye62 cameras, as
+            for :func:`render_mipmap_multiview`).
         n_levels: the pyramid's levels (T divisible by ``2**(n_levels -
             1)``; at most 11).
         stage_times: as for :func:`inverse8_step`, with "uv_derivative":

@@ -4,7 +4,9 @@
 Pinhole, OpenCV radial-tangential (4, 5 or 8 coefficients), OpenCV fisheye
 and Fisheye62 (six radial and two tangential coefficients, with an optional
 pixel-space lookup-table correction), the host-side numpy FOV estimators,
-and the analytic pinhole Jacobian-vector product ``project_points_grad``.
+and the analytic Jacobian-vector product ``project_points_grad`` of the
+pinhole and the Fisheye62 projections (the JAX package's has the pinhole
+one only).
 Differentiable through autograd, as the JAX package's are through its
 autodiff. Clamps use ``torch.maximum``/``torch.minimum``, whose gradient
 splits at a tie as JAX's ``clip`` does.
@@ -22,6 +24,8 @@ from typing import List, Optional, Set, Tuple, Union
 
 import numpy as np
 import torch
+
+from drtk_tpu_torch import tracing
 
 __all__ = [
     "DISTORTION_MODES",
@@ -355,13 +359,31 @@ def project_points_grad(
     focal: torch.Tensor,
     distortion_mode: Optional[Union[List[str], str]] = None,
     distortion_coeff: Optional[torch.Tensor] = None,
+    fov: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The pinhole projection's Jacobian-vector product
-    ``d project_points(v) / dv @ v_grad`` [N, V, 2], analytically. Only the
-    undistorted path (``distortion_mode`` None) is defined, as in the JAX
-    package; any other mode raises NotImplementedError."""
+    """The projection's Jacobian-vector product ``d project_points(v)[..., :2]
+    / dv @ v_grad`` [N, V, 2], analytically, for the undistorted path
+    (``distortion_mode`` None, as in the JAX package) and for "fisheye62"
+    (coefficients ``distortion_coeff`` [N, 8]; ``fov`` [N, 1] as for
+    :func:`project_points`, estimated as its forward estimates it when None).
+    The Fisheye62 product is that of autograd wherever the projection is
+    differentiable; where a clip of the depth (1e-8), of the normalized
+    radius (1e-8 and ``fov``) or of the distorted point (``fov``) holds, the
+    clipped quantity's derivative is 0, and 1/2 at the bound itself, as
+    autograd takes it. Other modes, per-view lists and "fisheye62_lut"
+    raise NotImplementedError. With a tracer on, the Fisheye62 product is
+    the span ``lens_jvp``."""
+    return _project_points_grad(v_grad, v, campos, camrot, focal, distortion_mode, distortion_coeff, fov)[0]
+
+
+def _project_points_grad(v_grad, v, campos, camrot, focal, distortion_mode, distortion_coeff, fov, cut=False):
+    """:func:`project_points_grad`, and with ``cut`` (Fisheye62 only) the
+    points [N, V] whose product a clip changed; None otherwise."""
     if distortion_mode is not None and distortion_coeff is None:
         raise ValueError("project_points_grad: missing distortion coefficients")
+    if distortion_mode == "fisheye62":
+        with tracing.span("lens_jvp"):
+            return _fisheye62_grad(v_grad, v, campos, camrot, focal, distortion_coeff, fov, cut)
     if distortion_mode is not None:
         raise NotImplementedError(f"project_points_grad: distortion mode {distortion_mode} not implemented")
     v_cam_grad = torch.einsum("nij,nvj->nvi", camrot, v_grad)
@@ -369,4 +391,64 @@ def project_points_grad(
     z = _signclamp(v_cam[:, :, 2:3])
     z_grad = v_cam_grad[:, :, 2:3]
     v_proj_grad = (v_cam_grad[:, :, 0:2] * z - v_cam[:, :, 0:2] * z_grad) / z**2
-    return torch.einsum("nij,nvj->nvi", focal, v_proj_grad)
+    return torch.einsum("nij,nvj->nvi", focal, v_proj_grad), None
+
+
+def _slope(x: torch.Tensor, low, high=None) -> torch.Tensor:
+    """``d clip(x, low, high) / dx`` as autograd takes it through ``maximum``
+    and ``minimum``: 1 inside, 0 outside, 1/2 at a bound (no upper bound
+    when ``high`` is None)."""
+    out = torch.sign(x - low) + 1
+    return out * 0.5 if high is None else out * (torch.sign(high - x) + 1) * 0.25
+
+
+def _fisheye62_grad(v_grad, v, campos, camrot, focal, D, fov, cut):
+    """The Fisheye62 branch of :func:`_project_points_grad`: the forward of
+    :func:`project_fisheye_distort_62` (no lookup table) differentiated by
+    hand, each clip's derivative from :func:`_slope`."""
+    if D.shape[1] != 8:
+        raise ValueError(f"project_points_grad: Fisheye62 requires 8 distortion params, got {D.shape[1]}")
+    if fov is None:
+        # The 4-coefficient estimator, as the forward takes it.
+        fov = estimate_fisheye_fov(D)
+    v_cam_grad = torch.einsum("nij,nvj->nvi", camrot, v_grad)
+    v_cam = torch.einsum("nij,nvj->nvi", camrot, v - campos[:, None])
+    z_cam = v_cam[:, :, 2:3]
+    z = _signclamp(z_cam)
+    # _signclamp is a clip of |z| at 1e-8 from below.
+    z_slope = _slope(z_cam.abs(), 1e-8)
+    v_proj = v_cam[:, :, :2] / z
+    v_proj_grad = (v_cam_grad[:, :, :2] - v_proj * (v_cam_grad[:, :, 2:3] * z_slope)) / z
+
+    r_raw = torch.sqrt((v_proj**2).sum(-1))
+    r = _clip(r_raw, 1e-8, fov)
+    r_slope = _slope(r_raw, 1e-8, fov)
+    r_grad = (v_proj * v_proj_grad).sum(-1) / r * r_slope
+    theta = torch.atan(r)
+    t2 = theta * theta
+    k = [D[:, i : i + 1] for i in range(6)]
+    # theta_d = theta (1 + k0 t^2 + ... + k5 t^12) and d theta_d / d theta, by Horner.
+    poly = k[5]
+    dpoly = 13 * k[5]
+    for i in range(4, -1, -1):
+        poly = k[i] + t2 * poly
+        dpoly = (2 * i + 3) * k[i] + t2 * dpoly
+    scale = theta * (1 + t2 * poly) / r
+    scale_grad = ((1 + t2 * dpoly) / (1 + r * r) - scale) * r_grad / r
+    v_dist = v_proj * scale[..., None]
+    v_dist_grad = v_proj_grad * scale[..., None] + v_proj * scale_grad[..., None]
+    bound = fov[..., None]
+    d_slope = _slope(v_dist, -bound, bound)
+    v_dist = _clip(v_dist, -bound, bound)
+    v_dist_grad = v_dist_grad * d_slope
+
+    # The tangential terms: x_t = (3x^2 + y^2) p0 + 2xy p1, y_t = 2xy p0 + (x^2 + 3y^2) p1.
+    x, y = v_dist[..., 0], v_dist[..., 1]
+    dx, dy = v_dist_grad[..., 0], v_dist_grad[..., 1]
+    xdx, ydy, cross = x * dx, y * dy, x * dy + y * dx
+    p0, p1 = D[:, 6:7], D[:, 7:8]
+    t_grad = torch.stack([p0 * (3 * xdx + ydy) + p1 * cross, p0 * cross + p1 * (xdx + 3 * ydy)], dim=-1)
+    out = torch.einsum("nij,nvj->nvi", focal, v_dist_grad + 2 * t_grad)
+    if not cut:
+        return out, None
+    return out, (z_slope[..., 0] < 1) | (r_slope < 1) | (d_slope < 1).any(-1)

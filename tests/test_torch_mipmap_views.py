@@ -190,16 +190,23 @@ def test_render_mipmap_multiview_validation():
 
 @pytest.mark.parametrize("mode", ["radial-tangential", "fisheye", "fisheye62"])
 def test_render_mipmap_multiview_raises_for_a_lens(mode):
-    """The uv Jacobian is the pinhole one: a lens raises NotImplementedError
-    in the port's project_points_grad, as it does in JAX's, instead of
-    pairing lens-projected positions with a pinhole Jacobian."""
+    """The uv Jacobian through a lens: the port's project_points_grad takes
+    Fisheye62 (its product held to autograd in test_torch_lens_jvp.py, the
+    step to the benchmark's reference in test_torch_fisheye62_views.py) and
+    raises NotImplementedError for the other lenses, instead of pairing
+    lens-projected positions with a pinhole Jacobian; JAX's raises for
+    every lens."""
     a, levels = _mipmap_inputs()
     t = scene_from_numpy(a, device="cpu")
     coeff = inverse8_lens_arrays(mode, VIEWS).astype(a["campos"].dtype)
     cams = {**{k: t[k] for k in CAMS}, "distortion_mode": mode, "distortion_coeff": torch.from_numpy(coeff)}
-    with pytest.raises(NotImplementedError, match="distortion mode"):
-        render_mipmap_multiview(t["v_world"], t["vi"], t["vt"], [torch.from_numpy(x) for x in levels], cams, H, W,
-                                device="cpu")
+    tlevels = [torch.from_numpy(x) for x in levels]
+    if mode == "fisheye62":
+        img, idx = render_mipmap_multiview(t["v_world"], t["vi"], t["vt"], tlevels, cams, H, W, device="cpu")
+        assert img.shape == (VIEWS, 4, H, W) and bool(torch.isfinite(img).all()) and bool((idx != -1).any())
+    else:
+        with pytest.raises(NotImplementedError, match="distortion mode"):
+            render_mipmap_multiview(t["v_world"], t["vi"], t["vt"], tlevels, cams, H, W, device="cpu")
     v = np.broadcast_to(a["v_world"], (VIEWS,) + a["v_world"].shape[1:])
     with pytest.raises(NotImplementedError, match="distortion mode"):
         jproj.project_points_grad(jnp.asarray(v), jnp.asarray(v), jnp.asarray(a["campos"]), jnp.asarray(a["camrot"]),
